@@ -1,0 +1,51 @@
+"""The port stands alone: importing it loads neither JAX nor any module of
+the JAX package, and no source file of it (or chip_smoke.py) imports
+them."""
+import ast
+import glob
+import os
+import subprocess
+import sys
+
+import pytest
+
+ROOT = os.path.join(os.path.dirname(__file__), "..")
+SRC = os.path.join(ROOT, "src")
+PORT_FILES = sorted(
+    glob.glob(os.path.join(SRC, "repro_torch", "**", "*.py"), recursive=True)
+) + [os.path.join(ROOT, "chip_smoke.py")]
+
+
+def _forbidden(module: str) -> bool:
+    top = module.split(".")[0]
+    return top in ("jax", "jaxlib", "repro")
+
+
+def test_import_leaves_jax_and_repro_unloaded():
+    code = (
+        "import sys\n"
+        "import repro_torch, repro_torch.mining.driver, "
+        "repro_torch.launch.mine\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'repro'))\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    env = dict(os.environ, PYTHONPATH=SRC)
+    proc = subprocess.run([sys.executable, "-c", code], env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+@pytest.mark.parametrize(
+    "path", PORT_FILES, ids=[os.path.relpath(p, ROOT) for p in PORT_FILES])
+def test_source_imports_neither_jax_nor_repro(path):
+    tree = ast.parse(open(path).read(), filename=path)
+    bad = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            bad += [a.name for a in node.names if _forbidden(a.name)]
+        elif isinstance(node, ast.ImportFrom):
+            if node.level == 0 and node.module and _forbidden(node.module):
+                bad.append(node.module)
+    assert not bad, f"{path} imports {bad}"
