@@ -15,6 +15,10 @@ import torch
 
 DeviceLike = Union[str, torch.device, None]
 
+# shared memory one block may use on sm_90 (227 KB); wrappers raise
+# before launching a kernel that would need more
+MAX_SMEM_BYTES = 232448
+
 
 def resolve_device(device: DeviceLike = None) -> torch.device:
     """The device an entry point runs on: ``device`` when given, else
@@ -33,3 +37,17 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
     if device.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {device}")
     return device
+
+
+def check_int32(name: str, x, ndim: int, device: torch.device) -> None:
+    """Raise unless ``x`` is an int32 tensor of ``ndim`` dims on
+    ``device``: what every kernel wrapper checks before it chooses."""
+    if not isinstance(x, torch.Tensor):
+        raise TypeError(f"{name} must be a tensor, got {type(x).__name__}")
+    if x.dtype != torch.int32:
+        raise TypeError(f"{name} must be int32, got {x.dtype}")
+    if x.ndim != ndim:
+        raise ValueError(f"{name} must have {ndim} dims, got "
+                         f"{tuple(x.shape)}")
+    if x.device != device:
+        raise ValueError(f"{name} is on {x.device}, expected {device}")

@@ -3,8 +3,8 @@
 Each kernel has a plain C interface and is bound with ``ctypes``, so the
 build is one ``nvcc`` call of a few seconds (no PyTorch headers).  The
 library goes to ``build/`` at the repository root, named by a hash of the
-source and the flags, so an edited source is rebuilt and an unchanged one
-is loaded as it is.  Nothing is built when a module is imported: the
+source, every shared header ``csrc/*.cuh`` and the flags, so an edited
+source or header is rebuilt and an unchanged one is loaded as it is.  Nothing is built when a module is imported: the
 first launch of a kernel builds it.
 """
 from __future__ import annotations
@@ -45,8 +45,13 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode())
+    """Where ``csrc/<name>.cu`` builds to: named by a hash of the
+    source, of every shared header (any of them may be included) and of
+    the flags."""
+    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.name.encode() + b"\0" + header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 
@@ -61,7 +66,8 @@ def build(name: str) -> Path:
     fd, tmp = tempfile.mkstemp(dir=BUILD_DIR, prefix=f".{name}-",
                                suffix=".so")
     os.close(fd)
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")]
+    cmd = [nvcc_path(), *NVCC_FLAGS, "-I", str(CSRC), "-o", tmp,
+           str(CSRC / f"{name}.cu")]
     t0 = time.perf_counter()
     try:
         proc = subprocess.run(cmd, capture_output=True, text=True)

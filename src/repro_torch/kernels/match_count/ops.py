@@ -16,6 +16,7 @@ import ctypes
 import torch
 
 from .. import _build
+from .. import check_int32
 from .ref import match_signatures_batch_ref
 
 # kernel launches made by this process (the plain version never counts)
@@ -36,18 +37,6 @@ def _kernel_lib() -> ctypes.CDLL:
     return _lib
 
 
-def _check(name, x, ndim, device):
-    if not isinstance(x, torch.Tensor):
-        raise TypeError(f"{name} must be a tensor, got {type(x).__name__}")
-    if x.dtype != torch.int32:
-        raise TypeError(f"{name} must be int32, got {x.dtype}")
-    if x.ndim != ndim:
-        raise ValueError(f"{name} must have {ndim} dims, got "
-                         f"{tuple(x.shape)}")
-    if x.device != device:
-        raise ValueError(f"{name} is on {x.device}, tokens on {device}")
-
-
 def match_signatures_batch(tokens, gid, phi, psi, emb_valid, pid,
                            ex_stack, nv_stack, npat_stack, mode_stack):
     """Packed int32 extension signatures ``[E,T]`` (-1 = none) for a
@@ -65,7 +54,7 @@ def match_signatures_batch(tokens, gid, phi, psi, emb_valid, pid,
         "npat_stack": (npat_stack, 1), "mode_stack": (mode_stack, 1),
     }
     for name, (x, ndim) in args.items():
-        _check(name, x, ndim, device)
+        check_int32(name, x, ndim, device)
     G, T, C = tokens.shape
     E, NI = phi.shape
     NV = psi.shape[1]
@@ -118,7 +107,7 @@ def match_signatures_kernel(tokens, gid, phi, psi, emb_valid, existing,
     [P,5] table with scalar ``nv``/``n_pat``/``mode``.  Runs the per-row
     kernel with one pattern."""
     device = tokens.device
-    _check("existing", existing, 2, device)
+    check_int32("existing", existing, 2, device)
     scal = torch.tensor([[int(nv)], [int(n_pat)], [int(mode)]],
                         dtype=torch.int32).to(device)
     pid = torch.zeros_like(gid)

@@ -25,7 +25,8 @@ def test_import_leaves_jax_and_repro_unloaded():
     code = (
         "import sys\n"
         "import repro_torch, repro_torch.mining.driver, "
-        "repro_torch.launch.mine\n"
+        "repro_torch.launch.mine, repro_torch.serving, "
+        "repro_torch.serving.batch, repro_torch.launch.serve\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro'))\n"
         "print(bad)\n"
