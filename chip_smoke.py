@@ -72,8 +72,6 @@ KERNELS = ("match_count", "containment", "trie_walk")
 # the serving phase: Table 3 queries (seed 1) against phase 3's bank
 N_QUERIES, MAX_BATCH, EMAX, N_ORACLE = 1000, 512, 4, 128
 LAYOUTS = ("flat", "trie", "trie_fused")
-# the serving phases' device (a CPU rehearsal of them sets "cpu")
-DEV = "cuda"
 
 
 def log(msg: str) -> None:
@@ -386,19 +384,46 @@ def _contain_bound(tok, psi, srow):
     return (*_bound(nbytes, nops), nbytes, nops)
 
 
-def _walk_bound(args, emax, tmax, ni, nv):
-    """Least time for one trie_walk call: each input read once and both
-    outputs written once, against the int32 operations these inputs
-    need: the K-wide prescreen of every slot, and for every slot that
-    passes it the window gather, the E*Tm predicate pairs (counted at
-    3 nv + 30 each), the compaction and the E*(ni+nv) state update."""
+def _real_cells(cells):
+    """The rows of a fused batch's ``cells [npad, 2]`` that name a real
+    (sequence, subtree) cell.  The server fills the first n rows from
+    ``np.nonzero`` (unique, ascending) and pads with (0, 0), so a (0, 0)
+    row past the first is padding."""
+    return cells[:1 + int((cells[1:] != 0).any(dim=1).sum())]
+
+
+def _walk_bound(args, cells, emax, tmax, ni, nv):
+    """Least time for one trie_walk call over the batch's real cells:
+    each sequence's token table and index rows and each subtree's
+    packed tables read once, both outputs of the real cells written
+    once, against the int32 operations these inputs need: the K-wide
+    prescreen of every slot, and for every slot that passes it the
+    window gather, the E*Tm predicate pairs (counted at 3 nv + 30 each),
+    the compaction and the E*(ni+nv) state update.  Also returns the
+    bytes of the per-cell copies the kernel is handed (padding cells
+    included), which a kernel gathering by cell index would not need."""
+    import torch
+
     tok_c, order_c, start_c, count_c, steps, parent, req = args
-    N, S, K = req.shape
-    nbytes = 4 * (sum(a.numel() for a in args) + 2 * N * S)
-    live = int((count_c[:, None, :] >= req).all(-1).sum())
-    nops = (N * S * K + live * (tmax * 8 + emax * tmax * (3 * nv + 30)
+    N, T, _ = tok_c.shape
+    _, S, K = req.shape
+    real = _real_cells(cells)
+    n = real.shape[0]
+    n_seq = int(torch.unique(real[:, 0]).numel())
+    n_sub = int(torch.unique(real[:, 1]).numel())
+    nbytes = 4 * (n_seq * (7 * T + 2 * K) + n_sub * S * (9 + K) + 2 * n * S)
+    copy_bytes = 4 * (sum(a.numel() for a in args) + 2 * N * S)
+    live = int((count_c[:n, None, :] >= req[:n]).all(-1).sum())
+    nops = (n * S * K + live * (tmax * 8 + emax * tmax * (3 * nv + 30)
                                 + 2 * emax * tmax + 6 * emax * (ni + nv)))
-    return (*_bound(nbytes, nops), nbytes, nops)
+    return (*_bound(nbytes, nops), nbytes, nops, n, copy_bytes)
+
+
+def _abs_err(got, want) -> int:
+    """Largest absolute difference of two integer or bool tensors."""
+    if got.numel() == 0:
+        return 0
+    return int((got.long() - want.long()).abs().max())
 
 
 def serving_setup(res) -> dict:
@@ -410,6 +435,7 @@ def serving_setup(res) -> dict:
 
     from repro_torch.data.synthetic import Table3Params, generate_table3_db
     from repro_torch.serving import batch
+    from repro_torch.serving import server as server_mod
     from repro_torch.serving.bank import compile_bank
     from repro_torch.serving.server import PatternServer
     from repro_torch.serving.trie import build_trie
@@ -426,8 +452,9 @@ def serving_setup(res) -> dict:
     if bank.n_patterns != 211:
         raise AssertionError(f"expected the 211-rFTS bank, got "
                              f"{bank.n_patterns}")
-    recorded = {"contain_step": [], "trie_walk": []}
-    orig = {"contain_step": batch.contain_step, "trie_walk": batch.trie_walk}
+    recorded = {"contain_step": [], "trie_walk": [], "cells": []}
+    orig = {"contain_step": batch.contain_step, "trie_walk": batch.trie_walk,
+            "fused_trie_walk": server_mod.fused_trie_walk}
 
     def recorder(name):
         def call(*args, **kw):
@@ -436,12 +463,17 @@ def serving_setup(res) -> dict:
             return orig[name](*args, **kw)
         return call
 
+    def fused(*args, **kw):
+        recorded["cells"].append(args[4].clone())
+        return orig["fused_trie_walk"](*args, **kw)
+
     batch.contain_step = recorder("contain_step")
     batch.trie_walk = recorder("trie_walk")
+    server_mod.fused_trie_walk = fused
     try:
         first = queries[:MAX_BATCH]
         for layout in ("flat", "trie_fused"):
-            srv = PatternServer(bank, device=DEV, max_batch=MAX_BATCH,
+            srv = PatternServer(bank, device="cuda", max_batch=MAX_BATCH,
                                 emax=EMAX, bank_layout=layout, trie=trie)
             srv.query(first)
             if layout == "flat":
@@ -449,12 +481,15 @@ def serving_setup(res) -> dict:
     finally:
         batch.contain_step = orig["contain_step"]
         batch.trie_walk = orig["trie_walk"]
-    if not flat_calls or len(recorded["trie_walk"]) != 1:
+        server_mod.fused_trie_walk = orig["fused_trie_walk"]
+    if not flat_calls or len(recorded["trie_walk"]) != 1 \
+            or len(recorded["cells"]) != 1:
         raise AssertionError(
             f"recorded {len(flat_calls)} contain_step calls of the flat "
             f"batch and {len(recorded['trie_walk'])} fused walks")
     return {"bank": bank, "trie": trie, "queries": queries,
-            "flat_calls": flat_calls, "walk": recorded["trie_walk"][0]}
+            "flat_calls": flat_calls, "walk": recorded["trie_walk"][0],
+            "cells": recorded["cells"][0]}
 
 
 def phase_serving_kernels(setup) -> list:
@@ -474,7 +509,7 @@ def phase_serving_kernels(setup) -> list:
     out = []
     # ---- contain_step: random inputs, then the flat batch's real calls
     rng = np.random.default_rng(2)
-    n_cmp = 0
+    n_cmp = max_err = 0
     for G_, E_, Tm in ((1, 1, 1), (65, 4, 9), (4096, 4, 16),
                        (4096, 16, 16)):
         args = [torch.from_numpy(a).to(dev)
@@ -482,6 +517,7 @@ def phase_serving_kernels(setup) -> list:
         got = cops.contain_step(*args)
         want = cref.contain_step_core(*args)
         torch.cuda.synchronize()
+        max_err = max(max_err, _abs_err(got, want))
         if not torch.equal(got, want):
             raise AssertionError(
                 f"contain_step random G={G_} Ein={E_} Tm={Tm}: "
@@ -492,6 +528,7 @@ def phase_serving_kernels(setup) -> list:
         got = cops.contain_step(*args)
         want = cref.contain_step_core(*args)
         torch.cuda.synchronize()
+        max_err = max(max_err, _abs_err(got, want))
         if not torch.equal(got, want):
             raise AssertionError(
                 f"contain_step on a flat serving call {tuple(args[1].shape)}"
@@ -521,7 +558,7 @@ def phase_serving_kernels(setup) -> list:
         "name": "contain_step", "route": "cuda",
         "source": "src/repro_torch/csrc/containment.cu",
         "replaces": "src/repro/kernels/containment/containment.py:52",
-        "max_abs_err": 0, "ms": ms, "plain_ms": plain_ms,
+        "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
         "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
     })
 
@@ -531,7 +568,9 @@ def phase_serving_kernels(setup) -> list:
     got = wops.trie_walk(*args, **kw)
     want = wref.trie_walk_core(*args, **kw)
     torch.cuda.synchronize()
+    max_err = 0
     for g, w, what in zip(got, want, ("acc", "ovf_term")):
+        max_err = max(max_err, _abs_err(g, w))
         if not torch.equal(g, w):
             raise AssertionError(f"trie_walk {what}: "
                                  f"{int((g != w).sum())} bits differ")
@@ -544,6 +583,7 @@ def phase_serving_kernels(setup) -> list:
     want_m = wref.trie_walk_core(*masked, **kw)
     torch.cuda.synchronize()
     for g, w, what in zip(got_m, want_m, ("acc", "ovf_term")):
+        max_err = max(max_err, _abs_err(g, w))
         if not torch.equal(g, w):
             raise AssertionError(f"trie_walk masked {what}: "
                                  f"{int((g != w).sum())} bits differ")
@@ -557,20 +597,21 @@ def phase_serving_kernels(setup) -> list:
     ms, host_ms = _time_ms(lambda: wops.trie_walk(*args, **kw), reps=100)
     plain_ms, plain_host_ms = _time_ms(
         lambda: wref.trie_walk_core(*args, **kw), reps=5)
-    bound_ms, bound_by, nbytes, nops = _walk_bound(args, **kw)
-    smem = wops._kernel_lib().trie_walk_smem_bytes(
-        args[0].shape[1], K, S, kw["emax"], kw["tmax"], kw["ni"], kw["nv"])
-    log(f"[trie_walk] N={N} S={S}, {smem} B of shared memory a cell: "
-        f"kernel {ms:.5f} ms device (median), "
-        f"{host_ms:.5f} ms per wrapper call on the host; plain "
-        f"{plain_ms:.5f} ms device, {plain_host_ms:.5f} ms host; bound "
-        f"{bound_ms:.6f} ms by {bound_by} ({nbytes} B, {nops} int ops); "
-        f"library_ms null (no single PyTorch call computes this)")
+    bound_ms, bound_by, nbytes, nops, n_real, copy_bytes = _walk_bound(
+        args, setup["cells"], **kw)
+    log(f"[trie_walk] N={N} cells ({n_real} real) S={S}: kernel {ms:.5f} "
+        f"ms device (median), {host_ms:.5f} ms per wrapper call on the "
+        f"host; plain {plain_ms:.5f} ms device, {plain_host_ms:.5f} ms "
+        f"host; bound {bound_ms:.6f} ms by {bound_by} ({nbytes} B of "
+        f"distinct sequence and subtree tables, {nops} int ops; the "
+        f"per-cell copies the kernel is handed are {copy_bytes} B, "
+        f"{1e3 * copy_bytes / PEAK_BYTES_PER_S:.6f} ms); library_ms null "
+        f"(no single PyTorch call computes this)")
     out.append({
         "name": "trie_walk", "route": "cuda",
         "source": "src/repro_torch/csrc/trie_walk.cu",
         "replaces": "src/repro/kernels/trie_walk/trie_walk.py:55",
-        "max_abs_err": 0, "ms": ms, "plain_ms": plain_ms,
+        "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
         "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
     })
     return out
@@ -587,12 +628,11 @@ def _serve(bank, trie, queries, layout, **kw):
     from repro_torch.serving.server import PatternServer
 
     sequence_fingerprint.cache_clear()
-    srv = PatternServer(bank, device=DEV, max_batch=MAX_BATCH,
+    srv = PatternServer(bank, device="cuda", max_batch=MAX_BATCH,
                         bank_layout=layout, trie=trie, **kw)
     t0 = time.perf_counter()
     got = srv.query(queries)
-    if DEV == "cuda":
-        torch.cuda.synchronize()
+    torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     return np.stack([r.contained for r in got]), dict(srv.stats), wall
 
@@ -653,12 +693,12 @@ def phase_serving(setup) -> dict:
                 f"{layout} rows differ from flat in "
                 f"{int((rows[layout] != rows['flat']).sum())} cells")
     fused_batches = stats["trie_fused"]["device_batches"]
-    if DEV == "cuda" and not (launches["contain_step"] > 0
+    if not (launches["contain_step"] > 0
             and launches["contain_step"] == calls["contain_step"]):
         raise AssertionError(
             f"contain_step launched {launches['contain_step']} times for "
             f"{calls['contain_step']} predicate calls")
-    if DEV == "cuda" and not (launches["trie_walk"] > 0
+    if not (launches["trie_walk"] > 0
             and launches["trie_walk"] == calls["trie_walk"]
             <= fused_batches):
         raise AssertionError(
@@ -699,17 +739,15 @@ def phase_serving(setup) -> dict:
 
     for layout in LAYOUTS:
         _log_layer_times(bank, trie, queries, layout)
-    if DEV == "cuda":
-        from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile
 
-        for layout in LAYOUTS:
-            t0 = time.perf_counter()
-            with profile(activities=[ProfilerActivity.CUDA]) as prof:
-                _serve(bank, trie, queries, layout, emax=EMAX)
-                torch.cuda.synchronize()
-            _log_device_times(f"[profile serving {layout}]", prof,
-                              time.perf_counter() - t0, walls[layout],
-                              top_n=8)
+    for layout in LAYOUTS:
+        t0 = time.perf_counter()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            _serve(bank, trie, queries, layout, emax=EMAX)
+            torch.cuda.synchronize()
+        _log_device_times(f"[profile serving {layout}]", prof,
+                          time.perf_counter() - t0, walls[layout], top_n=8)
     return launches
 
 
@@ -721,7 +759,7 @@ def phase_serve_launcher() -> None:
         t0 = time.perf_counter()
         proc = subprocess.run(
             [sys.executable, "-m", "repro_torch.launch.serve", "--device",
-             DEV, "--bank-layout", "trie_fused", *extra],
+             "cuda", "--bank-layout", "trie_fused", *extra],
             env=env, cwd=ROOT, capture_output=True, text=True, timeout=600)
         for line in proc.stdout.splitlines():
             log(f"  {line}")
@@ -730,7 +768,7 @@ def phase_serve_launcher() -> None:
                 f"serve launcher {extra} failed ({proc.returncode}):\n"
                 f"{proc.stderr[-4000:]}")
         log(f"[launcher] serve --bank-layout trie_fused {' '.join(extra)} "
-            f"on {DEV} verified in {time.perf_counter() - t0:.2f}s")
+            f"on cuda verified in {time.perf_counter() - t0:.2f}s")
 
 
 def phase_launcher() -> None:

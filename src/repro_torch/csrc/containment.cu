@@ -72,7 +72,10 @@ extern "C" int contain_step_launch(const int* tok, const int* psi,
     const cudaError_t err = cudaFuncSetAttribute(
         contain_step_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
+    if (err != cudaSuccess) {
+      cudaGetLastError();  // clear it, or the next launch reports it
+      return static_cast<int>(err);
+    }
   }
   int threads = ((Ein * Tm + 31) / 32) * 32;
   threads = threads < 32 ? 32 : (threads > 256 ? 256 : threads);

@@ -33,10 +33,11 @@
 // phi [S,E,ni], psi [S,E,nv], valid [S,E] and ovf [S] live in shared
 // memory (E = emax), as do the slot's seed, its token window [Tm,6],
 // its step rows [E,8] and its predicate bits [E,Tm]; at S = 8, E = 4,
-// ni = 6, nv = 12 that is under 4 KB a cell.  The wrapper computes the
-// size from the launch's sizes and raises where it exceeds the card's
-// 227 KB.  The compaction keeps the first E flagged candidates in
-// ascending (row, token, orientation) order - children seed from the
+// ni = 6, nv = 12 that is under 4 KB a cell.  The launcher works out
+// the size from the launch's sizes and returns the CUDA error when it
+// exceeds what a block may have; the wrapper raises on it.  The
+// compaction keeps the first E flagged candidates in ascending
+// (row, token, orientation) order - children seed from the
 // compacted state, so the order is part of the result - by one thread
 // scanning the E*Tm*2 candidates; it stops once it has seen E + 1
 // (the (E+1)-th is the frontier overflow).  Pad slots (step_valid 0,
@@ -228,14 +229,6 @@ trie_walk_kernel(const int* __restrict__ tok_c, const int* __restrict__ order_c,
 
 }  // namespace
 
-// Shared memory in bytes the kernel needs at these sizes; the wrapper
-// raises above the card's limit before launching.
-extern "C" long long trie_walk_smem_bytes(int T, int K, int S, int E, int Tm,
-                                          int ni, int nv) {
-  const Sizes z{T, K, S, E, Tm, ni, nv};
-  return static_cast<long long>(sizeof(int) * smem_ints(z));
-}
-
 // Plain C entry point, bound from Python with ctypes.  Launches on
 // ``stream`` and returns cudaGetLastError() (0 when the launch was taken).
 extern "C" int trie_walk_launch(const int* tok_c, const int* order_c,
@@ -251,7 +244,10 @@ extern "C" int trie_walk_launch(const int* tok_c, const int* order_c,
     const cudaError_t err = cudaFuncSetAttribute(
         trie_walk_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
+    if (err != cudaSuccess) {
+      cudaGetLastError();  // clear it, or the next launch reports it
+      return static_cast<int>(err);
+    }
   }
   trie_walk_kernel<<<N, kThreads, smem, stream>>>(
       tok_c, order_c, start_c, count_c, steps, parent, req, acc, ovft, z);

@@ -15,11 +15,6 @@ import torch
 
 DeviceLike = Union[str, torch.device, None]
 
-# shared memory one block may use on sm_90 (227 KB); wrappers raise
-# before launching a kernel that would need more
-MAX_SMEM_BYTES = 232448
-
-
 def resolve_device(device: DeviceLike = None) -> torch.device:
     """The device an entry point runs on: ``device`` when given, else
     ``cuda``.  Raises when no CUDA device is present and none was asked

@@ -11,7 +11,7 @@ import ctypes
 
 import torch
 
-from .. import MAX_SMEM_BYTES, _build, check_int32
+from .. import _build, check_int32
 from .ref import SROW_FIELDS, contain_step_core
 
 # kernel launches made by this process (the plain version never counts)
@@ -59,11 +59,6 @@ def contain_step(tok, psi, srow):
         return out
     if NV < 1:
         raise ValueError("psi needs at least one vertex column")
-    smem = 4 * (Tm * 6 + Ein * (NV + SROW_FIELDS))
-    if smem > MAX_SMEM_BYTES:
-        raise ValueError(
-            f"contain_step needs {smem} bytes of shared memory a cell at "
-            f"Tm={Tm}, Ein={Ein}, NV={NV}; the card has {MAX_SMEM_BYTES}")
     lib = _kernel_lib()
     with torch.cuda.device(device):
         err = lib.contain_step_launch(
@@ -71,7 +66,10 @@ def contain_step(tok, psi, srow):
             G, Ein, Tm, NV, torch.cuda.current_stream(device).cuda_stream,
         )
     if err != 0:
-        raise RuntimeError(f"contain_step launch failed: CUDA error {err}")
+        # the launcher refuses sizes that need more shared memory a
+        # block than the card has (CUDA error 1, invalid value)
+        raise RuntimeError(f"contain_step launch failed at G={G}, Ein={Ein}, "
+                           f"Tm={Tm}, NV={NV}: CUDA error {err}")
     global launches
     launches += 1
     return out

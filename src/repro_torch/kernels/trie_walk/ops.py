@@ -10,7 +10,7 @@ import ctypes
 
 import torch
 
-from .. import MAX_SMEM_BYTES, _build, check_int32
+from .. import _build, check_int32
 from .ref import trie_walk_core
 
 # kernel launches made by this process (the plain version never counts)
@@ -27,8 +27,6 @@ def _kernel_lib() -> ctypes.CDLL:
         lib = _build.load("trie_walk")
         lib.trie_walk_launch.argtypes = [_P] * 9 + [_I] * 8 + [_P]
         lib.trie_walk_launch.restype = _I
-        lib.trie_walk_smem_bytes.argtypes = [_I] * 7
-        lib.trie_walk_smem_bytes.restype = ctypes.c_longlong
         _lib = lib
     return _lib
 
@@ -78,12 +76,6 @@ def trie_walk(tok_c, order_c, start_c, count_c, steps, parent, req, *,
     if T == 0:
         raise ValueError("cells to walk but an empty token table")
     lib = _kernel_lib()
-    smem = lib.trie_walk_smem_bytes(T, K, S, emax, tmax, ni, nv)
-    if smem > MAX_SMEM_BYTES:
-        raise ValueError(
-            f"trie_walk needs {smem} bytes of shared memory a cell at "
-            f"S={S}, emax={emax}, tmax={tmax}, ni={ni}, nv={nv}, K={K}; "
-            f"the card has {MAX_SMEM_BYTES}")
     with torch.cuda.device(device):
         err = lib.trie_walk_launch(
             tok_c.data_ptr(), order_c.data_ptr(), start_c.data_ptr(),
@@ -93,7 +85,11 @@ def trie_walk(tok_c, order_c, start_c, count_c, steps, parent, req, *,
             torch.cuda.current_stream(device).cuda_stream,
         )
     if err != 0:
-        raise RuntimeError(f"trie_walk launch failed: CUDA error {err}")
+        # the launcher refuses sizes that need more shared memory a
+        # block than the card has (CUDA error 1, invalid value)
+        raise RuntimeError(
+            f"trie_walk launch failed at N={N}, T={T}, K={K}, S={S}, "
+            f"emax={emax}, tmax={tmax}, ni={ni}, nv={nv}: CUDA error {err}")
     global launches
     launches += 1
     return acc > 0, ovft > 0

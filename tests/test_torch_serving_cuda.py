@@ -51,6 +51,27 @@ def test_contain_step_kernel_matches_plain():
 
 
 @pytest.mark.cuda
+def test_contain_step_refuses_too_much_shared_memory():
+    """A window too wide for one block's shared memory raises from the
+    wrapper without a launch, and the next call is not charged with its
+    error."""
+    _needs_card()
+    rng = np.random.default_rng(5)
+    wide = [torch.from_numpy(a).cuda()
+            for a in contain_inputs(rng, 1, 1, 10_000)]
+    before = cops.launches
+    with pytest.raises(RuntimeError, match="Tm=10000"):
+        cops.contain_step(*wide)
+    assert cops.launches == before
+    cpu = [torch.from_numpy(a) for a in contain_inputs(rng, 65, 4, 9)]
+    got = cops.contain_step(*[x.cuda() for x in cpu])
+    torch.cuda.synchronize()
+    assert cops.launches == before + 1
+    np.testing.assert_array_equal(got.cpu().numpy(),
+                                  cops.contain_step(*cpu).numpy())
+
+
+@pytest.mark.cuda
 def test_trie_walk_kernel_matches_plain():
     """Every (query, subtree shard) cell of a mined bank, with and
     without REQ_MASKED slots, at frontier capacities 1 and 4."""
