@@ -22,10 +22,15 @@ line) on any failure:
 4. the launcher's ``--algo both`` self-check on ``cuda`` at its default
    size (GTRACE.relevant() == GTRACE-RS);
 5. the serving kernels vs their plain versions on the card: contain_step
-   on random inputs and on the real inputs of one flat serving batch,
-   trie_walk on the Table 3 bank's packed subtrees against the first
-   512 queries, with and without forced ``REQ_MASKED`` slots;
-   bit-equality, then timings beside each kernel's bound;
+   on random inputs, at its edge shapes (Ein*Tm of 1, 8, 31, 33 and 512
+   over cell counts that no block size divides) on inputs past the
+   cheap gates where every mask value occurs, and on the real inputs of
+   one flat serving batch; trie_walk, through the entry that
+   reads the tables in place by cell, on the Table 3 bank's packed
+   subtrees against the first 512 queries, and on the same tables at
+   emax 1 / tmax 1 and emax 16 / tmax 32, over a batch of pad cells,
+   and with 25 % of the slots forced to ``REQ_MASKED``; bit-equality,
+   then timings beside each kernel's bound;
 6. the serving path: ``PatternServer(device="cuda")`` over the bank of
    phase 3's map (211 rFTSs) answers 1000 Table 3 queries (seed 1)
    under the ``flat``, ``trie`` and ``trie_fused`` layouts; the rows
@@ -34,7 +39,9 @@ line) on any failure:
    and again at ``emax=1`` (escalation and host fallback); the launch
    counts are zeroed just before and read just after, and both serving
    kernels must have launched once per predicate call / fused walk; a
-   profiled repeat per layout reports the device time by kernel;
+   profiled repeat per layout reports the device time by kernel (the
+   port's three kernels always by name), and a timed trie_fused run the
+   device time from start to end of each fused walk;
 7. the serving launcher on ``cuda`` (``--bank-layout trie_fused``, at
    its defaults and at ``--emax 1``);
 8. one JSON line describing every ported kernel, then the last line
@@ -57,11 +64,15 @@ from concurrent.futures import ThreadPoolExecutor
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SRC = os.path.join(ROOT, "src")
 
-# H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit): HBM3
-# bandwidth, and the 32-bit rate outside the tensor cores, used for the
-# kernel's int32 compares.
+# HBM3 bandwidth of the H100 SXM (NVIDIA data sheet, at the 700 W limit)
 PEAK_BYTES_PER_S = 3.35e12
-PEAK_OPS_PER_S = 67e12
+# 32-bit integer operations (add, compare, min/max, logic) an SM issues a
+# clock at compute capability 9.0, from the CUDA C++ Programming Guide's
+# table of arithmetic instruction throughput: half the FP32 lanes.  The
+# kernels' int32 peak is this times the card's SMs and its maximum SM
+# clock, set in main() (16.7e12 ops/s at 132 SMs and 1,980 MHz).
+INT32_OPS_PER_SM_CLOCK = 64
+PEAK_OPS_PER_S = None
 
 # the main path's scan shapes (AcceleratedMiner defaults on the Table 3
 # DB): e_batch 1024, max_itemsets 16, max_vertices 12, MAX_PATTERN_TRS
@@ -72,6 +83,12 @@ KERNELS = ("match_count", "containment", "trie_walk")
 # the serving phase: Table 3 queries (seed 1) against phase 3's bank
 N_QUERIES, MAX_BATCH, EMAX, N_ORACLE = 1000, 512, 4, 128
 LAYOUTS = ("flat", "trie", "trie_fused")
+# contain_step's random (G, Ein, Tm) cases; its edge shapes are the
+# tests' EDGE_SHAPES (tests/contain_inputs.py)
+CONTAIN_RANDOM = ((1, 1, 1), (65, 4, 9), (4096, 4, 16), (4096, 16, 16))
+# the port's kernels as the profiler names them
+PORT_KERNELS = ("contain_step_kernel", "trie_walk_kernel",
+                "match_count_kernel")
 
 
 def log(msg: str) -> None:
@@ -84,6 +101,20 @@ def _gpu_line() -> str:
          "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True)
     return out.stdout.strip().splitlines()[0]
+
+
+def _int32_peak() -> float:
+    """The card's int32 peak in ops/s: INT32_OPS_PER_SM_CLOCK x its SMs x
+    its maximum SM clock (nvidia-smi, MHz)."""
+    import torch
+
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=60, check=True)
+    mhz = float(out.stdout.strip().splitlines()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return INT32_OPS_PER_SM_CLOCK * sms * mhz * 1e6
 
 
 def _sleep_cycles_per_ms() -> float:
@@ -354,8 +385,18 @@ def _log_device_times(tag, prof, prof_wall, wall, top_n=6):
             + "; ".join(f"{k[:48]} {v / 1e3:.4f} ms / {n} = "
                         f"{v / max(n, 1):.2f} us each"
                         for k, (v, n) in top))
+        log(f"{tag} port kernels: " + "; ".join(
+            "{} {:.5f} ms / {}".format(name, *_named_sum(dev, name))
+            for name in PORT_KERNELS))
     else:
         log(f"{tag} the profiler recorded no device time: not measured")
+
+
+def _named_sum(dev, name):
+    """(device ms, launches) summed over the profiler keys that hold
+    ``name`` (a kernel's key is its full signature)."""
+    hits = [v for k, v in dev.items() if name in k]
+    return sum(v for v, _ in hits) / 1e3, sum(n for _, n in hits)
 
 
 def _bound(nbytes, nops):
@@ -363,6 +404,17 @@ def _bound(nbytes, nops):
     ops_ms = 1e3 * nops / PEAK_OPS_PER_S
     return max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms
                                    else "operations")
+
+
+def _gates(tok, srow):
+    """[G,Ein,Tm] bool: the (cell, row, token) pairs past the predicate's
+    cheap validity, type, label and itemset-slot gates."""
+    t = tok[:, None, :, :]
+    r = srow[:, :, None, :]
+    return ((t[..., 5] > 0) & (r[..., 7] > 0) & (t[..., 0] == r[..., 0])
+            & (t[..., 3] == r[..., 3])
+            & ((r[..., 4] > 0) & (t[..., 4] > r[..., 5])
+               | (r[..., 4] <= 0) & (t[..., 4] == r[..., 6])))
 
 
 def _contain_bound(tok, psi, srow):
@@ -374,13 +426,7 @@ def _contain_bound(tok, psi, srow):
     G_, Tm, _ = tok.shape
     _, E_, NV_ = psi.shape
     nbytes = 4 * (tok.numel() + psi.numel() + srow.numel() + G_ * E_ * Tm)
-    t = tok[:, None, :, :]
-    r = srow[:, :, None, :]
-    gate = ((t[..., 5] > 0) & (r[..., 7] > 0) & (t[..., 0] == r[..., 0])
-            & (t[..., 3] == r[..., 3])
-            & ((r[..., 4] > 0) & (t[..., 4] > r[..., 5])
-               | (r[..., 4] <= 0) & (t[..., 4] == r[..., 6])))
-    nops = G_ * E_ * Tm * 10 + int(gate.sum()) * (3 * NV_ + 20)
+    nops = G_ * E_ * Tm * 10 + int(_gates(tok, srow).sum()) * (3 * NV_ + 20)
     return (*_bound(nbytes, nops), nbytes, nops)
 
 
@@ -392,31 +438,83 @@ def _real_cells(cells):
     return cells[:1 + int((cells[1:] != 0).any(dim=1).sum())]
 
 
-def _walk_bound(args, cells, emax, tmax, ni, nv):
-    """Least time for one trie_walk call over the batch's real cells:
-    each sequence's token table and index rows and each subtree's
-    packed tables read once, both outputs of the real cells written
-    once, against the int32 operations these inputs need: the K-wide
-    prescreen of every slot, and for every slot that passes it the
-    window gather, the E*Tm predicate pairs (counted at 3 nv + 30 each),
-    the compaction and the E*(ni+nv) state update.  Also returns the
-    bytes of the per-cell copies the kernel is handed (padding cells
-    included), which a kernel gathering by cell index would not need."""
+def _walk_work(args, kw):
+    """What this call's data needs of the join, read off the plain
+    version's predicate calls (one per slot, over the cells' seed rows):
+    the slots that join (a valid seed row and a valid step, so a window
+    to gather), their (seed row, token) pairs over the valid seed rows
+    only (a root slot has one row, a slot under a dead or empty parent
+    none), of those the pairs that pass the cheap gates, and the
+    frontier rows kept.  A cell's pairs past its (emax+1)-th candidate
+    are not counted: the walk is decided there."""
     import torch
 
-    tok_c, order_c, start_c, count_c, steps, parent, req = args
-    N, T, _ = tok_c.shape
-    _, S, K = req.shape
-    real = _real_cells(cells)
+    from repro_torch.kernels.trie_walk import ref as wref
+
+    E = kw["emax"]
+    work = {"joined": 0, "pairs": 0, "gated": 0, "kept": 0}
+    orig = wref.contain_step_core
+
+    def record(tok_w, psi, srow):
+        bits = orig(tok_w, psi, srow)
+        N, Ein, Tm = bits.shape
+        valid = (srow[..., 7] > 0)[..., None].expand(N, Ein, Tm)
+        flags = ((bits & 1) + ((bits >> 1) & 1)).reshape(N, -1)
+        before = torch.cumsum(flags, -1) - flags
+        need = valid.reshape(N, -1) & (before <= E)
+        work["joined"] += int((srow[..., 7] > 0).any(-1).sum())
+        work["pairs"] += int(need.sum())
+        work["gated"] += int((_gates(tok_w, srow).reshape(N, -1)
+                              & need).sum())
+        work["kept"] += int(flags.sum(-1).clamp(max=E).sum())
+        return bits
+
+    wref.contain_step_core = record
+    try:
+        _plain_walk(args, kw)
+    finally:
+        wref.contain_step_core = orig
+    return work
+
+
+def _walk_bound(args, emax, tmax, ni, nv):
+    """Least time for one trie_walk call over the batch's real cells:
+    their cell indices, each sequence's token table and index rows and
+    each subtree's packed tables read once, both byte outputs of the
+    real cells written once, against the int32 operations this data
+    needs (``_walk_work``): the K-wide prescreen of every slot; for
+    each slot that joins, the window gather (8 a token); 10 a pair over
+    the valid seed rows for the gates, 3 nv + 20 more for each pair past
+    them and 2 for its ballot rank; and ni + nv updates of 3 ops for
+    each kept row."""
+    import torch
+
+    kw = dict(emax=emax, tmax=tmax, ni=ni, nv=nv)
+    real = _real_cells(args[4])
+    args = [*args[:4], real, *args[5:]]
+    tokens, order, start, count, cells, steps_s, parent_s, req_s = args
+    T = tokens.shape[1]
+    _, S, K = req_s.shape
     n = real.shape[0]
     n_seq = int(torch.unique(real[:, 0]).numel())
     n_sub = int(torch.unique(real[:, 1]).numel())
-    nbytes = 4 * (n_seq * (7 * T + 2 * K) + n_sub * S * (9 + K) + 2 * n * S)
-    copy_bytes = 4 * (sum(a.numel() for a in args) + 2 * N * S)
-    live = int((count_c[:n, None, :] >= req[:n]).all(-1).sum())
-    nops = (n * S * K + live * (tmax * 8 + emax * tmax * (3 * nv + 30)
-                                + 2 * emax * tmax + 6 * emax * (ni + nv)))
-    return (*_bound(nbytes, nops), nbytes, nops, n, copy_bytes)
+    nbytes = (4 * (2 * n + n_seq * (7 * T + 2 * K) + n_sub * S * (9 + K))
+              + 2 * n * S)
+    work = _walk_work(args, kw)
+    nops = (n * S * K + work["joined"] * tmax * 8 + work["pairs"] * 12
+            + work["gated"] * (3 * nv + 20) + work["kept"] * 3 * (ni + nv))
+    return (*_bound(nbytes, nops), nbytes, nops, n, work)
+
+
+def _plain_walk(args, kw):
+    """The plain version of ``trie_walk_cells`` on the card: the tables
+    gathered by cell, then ``ref.trie_walk_core``."""
+    from repro_torch.kernels.trie_walk import ref as wref
+
+    tokens, order, start, count, cells, steps_s, parent_s, req_s = args
+    b, s = cells[:, 0].long(), cells[:, 1].long()
+    return wref.trie_walk_core(tokens[b], order[b], start[b], count[b],
+                               steps_s[s], parent_s[s], req_s[s], **kw)
 
 
 def _abs_err(got, want) -> int:
@@ -430,12 +528,11 @@ def serving_setup(res) -> dict:
     """Phase 3's map compiled into the serving bank, its trie, the 1000
     Table 3 queries (seed 1), and the real inputs of the serving
     kernels: one flat batch's contain_step calls and one fused batch's
-    trie_walk call, recorded while a server answers the first
-    ``MAX_BATCH`` queries."""
+    trie_walk_cells call (its tables and cells), recorded while a
+    server answers the first ``MAX_BATCH`` queries."""
 
     from repro_torch.data.synthetic import Table3Params, generate_table3_db
     from repro_torch.serving import batch
-    from repro_torch.serving import server as server_mod
     from repro_torch.serving.bank import compile_bank
     from repro_torch.serving.server import PatternServer
     from repro_torch.serving.trie import build_trie
@@ -452,9 +549,8 @@ def serving_setup(res) -> dict:
     if bank.n_patterns != 211:
         raise AssertionError(f"expected the 211-rFTS bank, got "
                              f"{bank.n_patterns}")
-    recorded = {"contain_step": [], "trie_walk": [], "cells": []}
-    orig = {"contain_step": batch.contain_step, "trie_walk": batch.trie_walk,
-            "fused_trie_walk": server_mod.fused_trie_walk}
+    recorded = {"contain_step": [], "trie_walk_cells": []}
+    orig = {name: getattr(batch, name) for name in recorded}
 
     def recorder(name):
         def call(*args, **kw):
@@ -463,13 +559,8 @@ def serving_setup(res) -> dict:
             return orig[name](*args, **kw)
         return call
 
-    def fused(*args, **kw):
-        recorded["cells"].append(args[4].clone())
-        return orig["fused_trie_walk"](*args, **kw)
-
-    batch.contain_step = recorder("contain_step")
-    batch.trie_walk = recorder("trie_walk")
-    server_mod.fused_trie_walk = fused
+    for name in recorded:
+        setattr(batch, name, recorder(name))
     try:
         first = queries[:MAX_BATCH]
         for layout in ("flat", "trie_fused"):
@@ -479,17 +570,15 @@ def serving_setup(res) -> dict:
             if layout == "flat":
                 flat_calls = list(recorded["contain_step"])
     finally:
-        batch.contain_step = orig["contain_step"]
-        batch.trie_walk = orig["trie_walk"]
-        server_mod.fused_trie_walk = orig["fused_trie_walk"]
-    if not flat_calls or len(recorded["trie_walk"]) != 1 \
-            or len(recorded["cells"]) != 1:
+        for name, fn in orig.items():
+            setattr(batch, name, fn)
+    if not flat_calls or len(recorded["trie_walk_cells"]) != 1:
         raise AssertionError(
             f"recorded {len(flat_calls)} contain_step calls of the flat "
-            f"batch and {len(recorded['trie_walk'])} fused walks")
+            f"batch and {len(recorded['trie_walk_cells'])} fused walks")
     return {"bank": bank, "trie": trie, "queries": queries,
-            "flat_calls": flat_calls, "walk": recorded["trie_walk"][0],
-            "cells": recorded["cells"][0]}
+            "flat_calls": flat_calls,
+            "walk": recorded["trie_walk_cells"][0]}
 
 
 def phase_serving_kernels(setup) -> list:
@@ -503,17 +592,20 @@ def phase_serving_kernels(setup) -> list:
 
     # the random inputs of the port's contain_step tests
     sys.path.insert(0, os.path.join(ROOT, "tests"))
-    from contain_inputs import contain_inputs
+    from contain_inputs import EDGE_SHAPES, contain_inputs, matching_inputs
 
     dev = torch.device("cuda")
     out = []
     # ---- contain_step: random inputs, then the flat batch's real calls
     rng = np.random.default_rng(2)
     n_cmp = max_err = 0
-    for G_, E_, Tm in ((1, 1, 1), (65, 4, 9), (4096, 4, 16),
-                       (4096, 16, 16)):
+    # the edge shapes on inputs past the cheap gates, where every mask
+    # value must occur
+    cases = ([(contain_inputs, c) for c in CONTAIN_RANDOM]
+             + [(matching_inputs, c) for c in EDGE_SHAPES])
+    for make, (G_, E_, Tm) in cases:
         args = [torch.from_numpy(a).to(dev)
-                for a in contain_inputs(rng, G_, E_, Tm, 6)]
+                for a in make(rng, G_, E_, Tm, 6)]
         got = cops.contain_step(*args)
         want = cref.contain_step_core(*args)
         torch.cuda.synchronize()
@@ -522,6 +614,11 @@ def phase_serving_kernels(setup) -> list:
             raise AssertionError(
                 f"contain_step random G={G_} Ein={E_} Tm={Tm}: "
                 f"{int((got != want).sum())} masks differ")
+        if make is matching_inputs and \
+                set(torch.unique(want).tolist()) != {0, 1, 2, 3}:
+            raise AssertionError(
+                f"contain_step edge shape G={G_} Ein={E_} Tm={Tm}: mask "
+                f"values {torch.unique(want).tolist()}, not all of 0-3")
         n_cmp += 1
     flat_calls = setup["flat_calls"]
     for args, _ in flat_calls:
@@ -538,8 +635,11 @@ def phase_serving_kernels(setup) -> list:
     hits = sum(int((cref.contain_step_core(*a) > 0).sum())
                for a, _ in flat_calls)
     log(f"[contain_step] bit-equal to the plain version in {n_cmp} "
-        f"comparisons: random (G,Ein,Tm) in (1,1,1)/(65,4,9)/(4096,4,16)/"
-        f"(4096,16,16) at NV=6, and all {len(flat_calls)} predicate calls "
+        f"comparisons: random (G,Ein,Tm) in "
+        + "/".join(f"({g},{e},{t})" for g, e, t in CONTAIN_RANDOM)
+        + ", edge shapes past the gates (every mask value occurring) in "
+        + "/".join(f"({g},{e},{t})" for g, e, t in EDGE_SHAPES)
+        + f" at NV=6, and all {len(flat_calls)} predicate calls "
         f"of one flat serving batch of {MAX_BATCH} queries ({hits} "
         f"nonzero masks)")
     ms, host_ms = _time_ms(lambda: cops.contain_step(*big), reps=200)
@@ -562,51 +662,71 @@ def phase_serving_kernels(setup) -> list:
         "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
     })
 
-    # ---- trie_walk: the fused batch's real call, then forced masks
+    # ---- trie_walk: the fused batch's real call, then edge cases
     args, kw = setup["walk"]
-    N, S, K = args[6].shape
-    got = wops.trie_walk(*args, **kw)
-    want = wref.trie_walk_core(*args, **kw)
-    torch.cuda.synchronize()
+    cells = args[4]
+    N = cells.shape[0]
+    _, S, K = args[7].shape
     max_err = 0
-    for g, w, what in zip(got, want, ("acc", "ovf_term")):
-        max_err = max(max_err, _abs_err(g, w))
-        if not torch.equal(g, w):
-            raise AssertionError(f"trie_walk {what}: "
-                                 f"{int((g != w).sum())} bits differ")
+    n_cmp = 0
+
+    def held(what, args, kw):
+        nonlocal max_err, n_cmp
+        got = wops.trie_walk_cells(*args, **kw)
+        want = _plain_walk(args, kw)
+        torch.cuda.synchronize()
+        for g, w, name in zip(got, want, ("acc", "ovf_term")):
+            max_err = max(max_err, _abs_err(g, w))
+            if not torch.equal(g, w):
+                raise AssertionError(f"trie_walk {what} {name}: "
+                                     f"{int((g != w).sum())} bits differ")
+        n_cmp += 1
+        return want
+
+    want = held("fused batch", args, kw)
     n_acc = int(want[0].sum())
+    edges = {}
+    for what, ekw in (("emax 1 / tmax 1", dict(kw, emax=1, tmax=1)),
+                      ("emax 16 / tmax 32", dict(kw, emax=16, tmax=32))):
+        edges[what] = int(held(what, args, ekw)[0].sum())
+    pads = [*args[:4], torch.zeros((N, 2), dtype=torch.int32, device=dev),
+            *args[5:]]
+    acc_p, ovf_p = held("pad cells", pads, kw)
+    if not ((acc_p == acc_p[:1]).all() and (ovf_p == ovf_p[:1]).all()):
+        raise AssertionError("pad cells walked differently")
     masked = [a.clone() for a in args]
-    kill = torch.from_numpy(
-        np.random.default_rng(3).random((N, S)) < 0.25).to(dev)
-    masked[6][kill] = wref.REQ_MASKED
-    got_m = wops.trie_walk(*masked, **kw)
-    want_m = wref.trie_walk_core(*masked, **kw)
-    torch.cuda.synchronize()
-    for g, w, what in zip(got_m, want_m, ("acc", "ovf_term")):
-        max_err = max(max_err, _abs_err(g, w))
-        if not torch.equal(g, w):
-            raise AssertionError(f"trie_walk masked {what}: "
-                                 f"{int((g != w).sum())} bits differ")
-    if (want_m[0] & kill).any() or (want_m[1] & kill).any():
+    kill = torch.from_numpy(np.random.default_rng(3).random(
+        tuple(args[7].shape[:2])) < 0.25).to(dev)
+    masked[7][kill] = wref.REQ_MASKED
+    acc_m, ovf_m = held("25 % REQ_MASKED", masked, kw)
+    dead = kill[cells[:, 1].long()]
+    if (acc_m & dead).any() or (ovf_m & dead).any():
         raise AssertionError("a REQ_MASKED slot came out set")
-    log(f"[trie_walk] bit-equal to the plain version on the fused batch "
-        f"of {MAX_BATCH} queries (N={N} cells, S={S} slots, K={K}, "
-        f"T={args[0].shape[1]}, {kw}; {n_acc} accepted slots) and with "
-        f"{int(kill.sum())} slots forced to REQ_MASKED "
-        f"({int(want_m[0].sum())} accepted)")
-    ms, host_ms = _time_ms(lambda: wops.trie_walk(*args, **kw), reps=100)
-    plain_ms, plain_host_ms = _time_ms(
-        lambda: wref.trie_walk_core(*args, **kw), reps=5)
-    bound_ms, bound_by, nbytes, nops, n_real, copy_bytes = _walk_bound(
-        args, setup["cells"], **kw)
+    log(f"[trie_walk] bit-equal to the plain version in {n_cmp} "
+        f"comparisons, through trie_walk_cells: the fused batch of "
+        f"{MAX_BATCH} queries (N={N} cells, S={S} slots, K={K}, "
+        f"T={args[0].shape[1]}, {kw}; {n_acc} accepted slots); the same "
+        f"cells at " + ", ".join(f"{k} ({v} accepted)"
+                                 for k, v in edges.items())
+        + f"; {N} pad cells; {int(dead.sum())} of {dead.numel()} cell "
+        f"slots forced to REQ_MASKED ({int(acc_m.sum())} accepted)")
+    ms, host_ms = _time_ms(lambda: wops.trie_walk_cells(*args, **kw),
+                           reps=100)
+    plain_ms, plain_host_ms = _time_ms(lambda: _plain_walk(args, kw),
+                                       reps=5)
+    bound_ms, bound_by, nbytes, nops, n_real, work = _walk_bound(args,
+                                                                 **kw)
     log(f"[trie_walk] N={N} cells ({n_real} real) S={S}: kernel {ms:.5f} "
-        f"ms device (median), {host_ms:.5f} ms per wrapper call on the "
-        f"host; plain {plain_ms:.5f} ms device, {plain_host_ms:.5f} ms "
-        f"host; bound {bound_ms:.6f} ms by {bound_by} ({nbytes} B of "
-        f"distinct sequence and subtree tables, {nops} int ops; the "
-        f"per-cell copies the kernel is handed are {copy_bytes} B, "
-        f"{1e3 * copy_bytes / PEAK_BYTES_PER_S:.6f} ms); library_ms null "
-        f"(no single PyTorch call computes this)")
+        f"ms device (median, reading the tables in place by cell), "
+        f"{host_ms:.5f} ms per wrapper call on the host; plain "
+        f"{plain_ms:.5f} ms device (gathers included), {plain_host_ms:.5f}"
+        f" ms host; bound {bound_ms:.6f} ms by {bound_by} ({nbytes} B of "
+        f"cell indices, distinct sequence and subtree tables and byte "
+        f"outputs; {nops} int ops over {work['joined']} joining slots, "
+        f"{work['pairs']} pairs over valid seed rows, {work['gated']} past "
+        f"the gates, {work['kept']} rows kept; int32 peak "
+        f"{PEAK_OPS_PER_S:.4g} ops/s); library_ms null (no single PyTorch "
+        f"call computes this)")
     out.append({
         "name": "trie_walk", "route": "cuda",
         "source": "src/repro_torch/csrc/trie_walk.cu",
@@ -659,6 +779,43 @@ def _log_layer_times(bank, trie, queries, layout):
     log(f"[trace serving {layout}] traced wall {wall:.3f}s; ms by span: "
         + "; ".join(f"{k} {v:.3f}/{n}" for k, (v, n) in
                     sorted(by.items(), key=lambda kv: -kv[1][0])))
+
+
+def _log_fused_walk_device(bank, trie, queries):
+    """Device time from the start to the end of every fused walk of one
+    trie_fused run, on CUDA events recorded around
+    ``fused_trie_walk``: whatever it enqueues (any gathers in front of
+    the kernel, the kernel, the bool casts after it).  Each walk is
+    queued behind a device sleep longer than the host needs to enqueue
+    it, so the events time the device's work and not the host's."""
+    import torch
+
+    from repro_torch.serving import server as server_mod
+
+    orig = server_mod.fused_trie_walk
+    cycles = int(_sleep_cycles_per_ms() * 5.0)
+    pairs = []
+
+    def timed(*args, **kw):
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(cycles)
+        start.record()
+        out = orig(*args, **kw)
+        stop.record()
+        pairs.append((start, stop))
+        return out
+
+    server_mod.fused_trie_walk = timed
+    try:
+        _serve(bank, trie, queries, "trie_fused", emax=EMAX)
+    finally:
+        server_mod.fused_trie_walk = orig
+    torch.cuda.synchronize()
+    ms = [a.elapsed_time(b) for a, b in pairs]
+    log(f"[serving trie_fused] device time from start to end of the "
+        f"fused walk: {sum(ms):.5f} ms over {len(ms)} walks ("
+        + ", ".join(f"{m:.5f}" for m in ms) + " ms)")
 
 
 def phase_serving(setup) -> dict:
@@ -739,6 +896,7 @@ def phase_serving(setup) -> dict:
 
     for layout in LAYOUTS:
         _log_layer_times(bank, trie, queries, layout)
+    _log_fused_walk_device(bank, trie, queries)
     from torch.profiler import ProfilerActivity, profile
 
     for layout in LAYOUTS:
@@ -803,6 +961,10 @@ def main() -> int:
     sys.path.insert(0, SRC)
     t_start = time.perf_counter()
     log(_gpu_line())
+    global PEAK_OPS_PER_S
+    PEAK_OPS_PER_S = _int32_peak()
+    log(f"[env] int32 peak {PEAK_OPS_PER_S:.6g} ops/s "
+        f"({INT32_OPS_PER_SM_CLOCK} a clock per SM x SMs x max SM clock)")
     log(f"[env] python {sys.version.split()[0]} torch {torch.__version__} "
         f"cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}")
 

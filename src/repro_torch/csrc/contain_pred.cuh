@@ -14,15 +14,31 @@ constexpr int kBig = 0x3FFFFFF;
 constexpr int kTokFields = 6;   // type, u1, u2, label, j, valid
 constexpr int kSrowFields = 8;  // ty, pu1, pu2, label, new, prev, cur, valid
 
+// How contain_pred reads its rows: a plain load (any address space,
+// registers included) or one through the read-only data cache (global
+// memory only).
+struct PlainLoad {
+  __device__ __forceinline__ int operator()(const int* p) const { return *p; }
+};
+struct LdgLoad {
+  __device__ __forceinline__ int operator()(const int* p) const {
+    return __ldg(p);
+  }
+};
+
 // tok: one token row (6 ints); psi: one frontier row (nv ints);
-// srow: one step row (8 ints).  Any address space.
+// srow: one step row (8 ints).  The psi row is read only when the
+// type, label, validity and itemset-slot gates pass.
+template <class Load = PlainLoad>
 __device__ __forceinline__ int contain_pred(const int* tok, const int* psi,
-                                            int nv, const int* srow) {
-  const int t_ty = tok[0], u1 = tok[1], u2 = tok[2], t_lab = tok[3];
-  const int j = tok[4];
-  const bool t_val = tok[5] > 0;
-  const int sty = srow[0], spu1 = srow[1], spu2 = srow[2], slab = srow[3];
-  const int snew = srow[4], sprev = srow[5], scur = srow[6], sval = srow[7];
+                                            int nv, const int* srow,
+                                            Load ld = Load()) {
+  const int t_ty = ld(tok), u1 = ld(tok + 1), u2 = ld(tok + 2);
+  const int t_lab = ld(tok + 3), j = ld(tok + 4);
+  const bool t_val = ld(tok + 5) > 0;
+  const int sty = ld(srow), spu1 = ld(srow + 1), spu2 = ld(srow + 2);
+  const int slab = ld(srow + 3), snew = ld(srow + 4), sprev = ld(srow + 5);
+  const int scur = ld(srow + 6), sval = ld(srow + 7);
 
   const bool base = t_val && sval > 0 && t_ty == sty && t_lab == slab;
   const bool slot_ok = snew > 0 ? j > sprev : j == scur;
@@ -32,7 +48,7 @@ __device__ __forceinline__ int contain_pred(const int* tok, const int* psi,
   int pvv1 = kBig, pvv2 = kBig;
   bool u1_mapped = false, u2_mapped = false;
   for (int c = 0; c < nv; ++c) {
-    const int v = psi[c];
+    const int v = ld(psi + c);
     if (c == spu1 && v < pvv1) pvv1 = v;
     if (c == spu2 && v < pvv2) pvv2 = v;
     u1_mapped |= v == u1;

@@ -13,73 +13,77 @@
 //
 // What bounds it on the card: per cell it reads (6 Tm + (NV + 8) Ein)
 // ints and writes Ein Tm ints, and each (e, t) pair costs about 2 NV + 20
-// integer operations, so at the serving shapes (Ein <= 16, Tm <= 32,
-// NV <= 14) it moves a few hundred bytes a cell and is bound by bytes,
-// by a wide margin; a serving step's call (a few thousand cells) sits
-// below a launch's latency.  The design is therefore plain: one block
-// per cell stages the cell's tokens, psi rows and step rows in shared
-// memory (each is read by many pairs), and its threads walk the cell's
-// (e, t) pairs flattened, so the [Ein,Tm] output row is written
-// coalesced.  Ein is whatever psi has (1 on a root step); the TPU
-// kernel's cell-block and lane padding have no counterpart: the kernel
-// takes every size at run time and masks nothing but its own loop.
+// integer operations, so it is bound by bytes: at the largest call of a
+// flat serving batch (G = 32768, Ein = 1, Tm = 8, NV = 3) 8.8 MB, 2.6 us
+// at 3.35 TB/s.  Each cell is tiny (a few hundred bytes, Ein Tm pairs,
+// often 8), so what stands between a kernel and that bound is
+// occupancy and latency, not arithmetic: a block per cell leaves most
+// lanes idle, fits 32 blocks on an SM and needs many waves, each behind
+// a staging barrier.
+//
+// Design: one thread per output element over the flattened G Ein Tm,
+// t fastest, so the [G,Ein,Tm] output is written coalesced and a block
+// of 256 threads covers many cells (32 at Ein Tm = 8; the largest flat
+// call is 1,024 blocks, one wave).  No shared memory and no barrier:
+// a thread reads its token row (24 B, shared by the Ein rows of the
+// cell), its psi row and its step row (shared by Tm threads) through
+// the read-only path (__ldg), and neighbouring threads of one cell meet
+// in L1.  The psi row is read only when the pair passes the cheap
+// type/label/slot gates.  Indices are 32-bit unsigned: each thread
+// divides twice, and in 64 bits the kernel took 0.00484 ms against 0.00466
+// at the largest flat call (H100 SXM at 700 W, chip_smoke.py).  So every offset must stay below 2^31: no
+// tensor of more than 2^31 - 1 ints (8 GB), which the launcher refuses
+// and the wrapper raises on.  The grid covers the work once, yet the body
+// sits in a grid-stride loop: nvcc then schedules the psi scan otherwise,
+// and the kernel took 0.00442 ms against 0.00464 with an early return.
 #include <cuda_runtime.h>
+
+#include <climits>
 
 #include "contain_pred.cuh"
 
 namespace {
 
-__global__ void contain_step_kernel(const int* __restrict__ tok,
-                                    const int* __restrict__ psi,
-                                    const int* __restrict__ srow,
-                                    int* __restrict__ out, int Ein, int Tm,
-                                    int NV) {
-  extern __shared__ int smem[];
-  int* s_tok = smem;                    // [Tm, 6]
-  int* s_psi = s_tok + Tm * 6;          // [Ein, NV]
-  int* s_srow = s_psi + Ein * NV;       // [Ein, 8]
-  const long long g = blockIdx.x;
-  const int* g_tok = tok + g * Tm * 6;
-  const int* g_psi = psi + g * Ein * NV;
-  const int* g_srow = srow + g * Ein * contain::kSrowFields;
-  for (int i = threadIdx.x; i < Tm * 6; i += blockDim.x) s_tok[i] = g_tok[i];
-  for (int i = threadIdx.x; i < Ein * NV; i += blockDim.x)
-    s_psi[i] = g_psi[i];
-  for (int i = threadIdx.x; i < Ein * contain::kSrowFields; i += blockDim.x)
-    s_srow[i] = g_srow[i];
-  __syncthreads();
-  int* g_out = out + g * Ein * Tm;
-  for (int i = threadIdx.x; i < Ein * Tm; i += blockDim.x) {
-    const int e = i / Tm;
-    const int t = i - e * Tm;
-    g_out[i] = contain::contain_pred(s_tok + t * 6, s_psi + e * NV, NV,
-                                     s_srow + e * contain::kSrowFields);
+constexpr int kThreads = 256;
+
+__global__ void __launch_bounds__(kThreads)
+contain_step_kernel(const int* __restrict__ tok, const int* __restrict__ psi,
+                    const int* __restrict__ srow, int* __restrict__ out,
+                    unsigned total, unsigned Ein, unsigned Tm, int NV) {
+  const unsigned ET = Ein * Tm;
+  for (unsigned i = blockIdx.x * kThreads + threadIdx.x; i < total;
+       i += gridDim.x * kThreads) {
+    const unsigned g = i / ET;
+    const unsigned r = i - g * ET;
+    const unsigned e = r / Tm;
+    const unsigned t = r - e * Tm;
+    const unsigned ge = g * Ein + e;
+    out[i] = contain::contain_pred(
+        tok + (g * Tm + t) * contain::kTokFields, psi + ge * NV, NV,
+        srow + ge * contain::kSrowFields, contain::LdgLoad());
   }
 }
 
 }  // namespace
 
 // Plain C entry point, bound from Python with ctypes.  Launches on
-// ``stream`` and returns cudaGetLastError() (0 when the launch was taken).
+// ``stream`` and returns cudaGetLastError() (0 when the launch was taken),
+// or cudaErrorInvalidValue when a tensor holds more than 2^31 - 1 ints.
 extern "C" int contain_step_launch(const int* tok, const int* psi,
                                    const int* srow, int* out, int G, int Ein,
                                    int Tm, int NV, cudaStream_t stream) {
   if (G <= 0 || Ein <= 0 || Tm <= 0) return 0;
-  const size_t smem =
-      sizeof(int) * (static_cast<size_t>(Tm) * 6 +
-                     static_cast<size_t>(Ein) * (NV + contain::kSrowFields));
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        contain_step_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (err != cudaSuccess) {
-      cudaGetLastError();  // clear it, or the next launch reports it
-      return static_cast<int>(err);
-    }
-  }
-  int threads = ((Ein * Tm + 31) / 32) * 32;
-  threads = threads < 32 ? 32 : (threads > 256 ? 256 : threads);
-  contain_step_kernel<<<G, threads, smem, stream>>>(tok, psi, srow, out, Ein,
-                                                    Tm, NV);
+  const long long total = static_cast<long long>(G) * Ein * Tm;
+  const long long rows = static_cast<long long>(G) * Ein;
+  const long long row_w = NV > contain::kSrowFields ? NV
+                                                    : contain::kSrowFields;
+  if (total > INT_MAX || static_cast<long long>(G) * Tm * 6 > INT_MAX ||
+      rows * row_w > INT_MAX)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const unsigned blocks = static_cast<unsigned>((total + kThreads - 1) /
+                                                kThreads);
+  contain_step_kernel<<<blocks, kThreads, 0, stream>>>(
+      tok, psi, srow, out, static_cast<unsigned>(total),
+      static_cast<unsigned>(Ein), static_cast<unsigned>(Tm), NV);
   return static_cast<int>(cudaGetLastError());
 }

@@ -5,241 +5,378 @@
 //   repro/kernels/trie_walk/trie_walk.py::trie_walk_blocked
 // and computes, bit for bit, the plain version
 //   repro_torch/kernels/trie_walk/ref.py::trie_walk_core
-// For each (sequence, subtree shard) cell it walks the shard's S slots in
-// topological order.  Slot n seeds from its parent slot's frontier (or
-// the root state when parent < 0), applies the residual-req prescreen,
-// takes one embedding-join step - window gather through the inverted
-// index, the containment predicate (contain_pred.cuh, shared with
-// containment.cu), first-E compaction in (row, token, orientation)
-// order, phi/psi update - and writes its terminal accept and
-// terminal-overflow bits.
+// on the tables that repro_torch/kernels/trie_walk/ops.py::trie_walk_cells
+// gathers by cell.  For each (sequence, subtree shard) cell it walks the
+// shard's S slots in topological order.  Slot n seeds from its parent
+// slot's frontier (or the root state when parent < 0), applies the
+// residual-req prescreen, takes one embedding-join step - window gather
+// through the inverted index, the containment predicate
+// (contain_pred.cuh, shared with containment.cu), first-E compaction in
+// (row, token, orientation) order, phi/psi update - and writes its
+// terminal accept and terminal-overflow bits.
 //
-// Inputs (all int32, contiguous):
-//   tok_c [N,T,6]  order_c [N,T]  start_c, count_c [N,K]
-//   steps [N,S,8]  parent [N,S]  req [N,S,K]
-// Outputs: acc, ovft [N,S] (0/1).
+// Inputs (all int32, contiguous), read in place through cells:
+//   tokens [B,T,6]  order [B,T]  start, count [B,K]      (by cells[i,0])
+//   steps_s [Sp,S,8]  parent_s [Sp,S]  req_s [Sp,S,K]    (by cells[i,1])
+//   cells [N,2]
+// Outputs: acc, ovft [N,S] (bytes 0/1: torch.bool).
 //
-// What bounds it on the card: a cell reads its token table, index rows
-// and packed subtree (about 4 (7T + 2K + S (9 + K)) bytes) and does, per
-// slot, E*Tm predicate evaluations of about 2 nv + 20 integer operations
-// plus the compaction and the state update: a few kilobytes and a few
-// tens of thousands of operations a cell, so bytes and operations are
-// both far below a launch's latency at serving batch sizes.  The limit
-// of this simple design is the walk's serial chain: S slots, each a
-// handful of barrier-separated phases, one of them (the compaction) run
-// by one thread.
+// What bounds it on the card: the work of a cell is small (S slots of
+// E*Tm predicate pairs, a compaction and an E*(ni+nv) update: a few
+// thousand integer operations) and strictly serial from slot to slot,
+// each slot behind a chain of dependent reads (parent -> frontier ->
+// predicate -> compaction -> update).  Bytes and operations are both
+// far below what the card could do: at the serving shape (16,384 cells,
+// S = 8, emax 4, tmax 8) the bound is 1.6 us of operations, while the
+// time goes to instruction issue and latency along each warp's chain.
+// A block of 128 threads per cell would leave 96 threads idle in the
+// predicate (32 pairs) and all but one in a serial compaction, put
+// block barriers between the phases of every slot, and fit about 2,100
+// cells on the card.
 //
-// Design: one block per cell.  The per-slot frontier buffers
-// phi [S,E,ni], psi [S,E,nv], valid [S,E] and ovf [S] live in shared
-// memory (E = emax), as do the slot's seed, its token window [Tm,6],
-// its step rows [E,8] and its predicate bits [E,Tm]; at S = 8, E = 4,
-// ni = 6, nv = 12 that is under 4 KB a cell.  The launcher works out
-// the size from the launch's sizes and returns the CUDA error when it
-// exceeds what a block may have; the wrapper raises on it.  The
-// compaction keeps the first E flagged candidates in ascending
-// (row, token, orientation) order - children seed from the
-// compacted state, so the order is part of the result - by one thread
-// scanning the E*Tm*2 candidates; it stops once it has seen E + 1
-// (the (E+1)-th is the frontier overflow).  Pad slots (step_valid 0,
-// parent -1, req = int32 max) fail the prescreen and come out 0/0 with
-// no special case.  The TPU kernel's cell-block and slot padding have
-// no counterpart: every size is taken at run time.
+// Design: one warp per cell, 4 cells a block (fewer where a cell's
+// buffers are large), no block barrier: the warp owns its slice of
+// shared memory and __syncwarp orders its phases.
+//  - The cell's tables are read in place through cells[i] (no per-cell
+//    copies in front of the launch).  The prologue reads the shard's
+//    step rows, parents and window starts and counts, and the residual
+//    prescreen of every slot (count >= req on all K keys, lanes across
+//    the keys, the req rows of 8 slots read before any is compared).
+//  - Frontier buffers phi [S,E,ni], psi [S,E,nv] stay in shared memory;
+//    after the compaction a slot's valid rows are exactly its first
+//    n_sel rows, so a slot keeps the count n_sel, not a row mask.
+//  - A slot that fails its prescreen costs one read: its flags stay
+//    the prologue's zeros, so a child of it seeds no row and inherits
+//    no overflow, as in the plain version.  A slot whose seed has no
+//    valid row only passes the overflow on.  Neither reads its window
+//    or evaluates a predicate.  Rows past n_sel are never read again,
+//    so they are not written.
+//  - The slot's E*Tm predicate pairs map onto the 32 lanes (looping past
+//    32); candidate c = (e*Tm + t)*2 + o.  Compaction by ballot: per
+//    group of 32 pairs, __ballot_sync of the two orientation bits, and
+//    a flagged candidate's rank is the running count plus __popc of the
+//    lower lanes' bits - the (row, token, orientation) order exactly.
+//    The walk of the pairs stops once the count passes E; the (E+1)-th
+//    candidate is the frontier overflow.
+//  - The outputs are bytes, so the wrapper hands them out as torch.bool
+//    with no cast after the kernel.
+// Measured alternatives that were slower at the serving shape: reading
+// every slot's window in the prologue (the slots' reads are not what the
+// chain waits on), persistent warps striding over the cells (the cells'
+// work is uneven), 8 warps a block, and fewer registers for more warps.
+// Pad slots (step_valid 0, parent -1, req = int32 max) fail the
+// prescreen and come out 0/0 with no special case; pad cells (the zero
+// rows a batch is padded with) walk cell (0, 0).  Cell indices wrap
+// once when negative and clamp into range, as JAX's gather does.  The
+// launcher returns the CUDA error when a cell's buffers exceed what one
+// block may have; the wrapper raises on it.
 #include <cuda_runtime.h>
+
+#include <climits>
 
 #include "contain_pred.cuh"
 
 namespace {
 
-constexpr int kThreads = 128;
+constexpr int kWarp = 32;
+constexpr int kMaxWarps = 4;
+constexpr int kBatch = 8;  // slots whose prescreen reads are issued together
+constexpr unsigned kFull = 0xffffffffu;
 constexpr int kPadPhi = 0x3FFFFFF;
 constexpr int kPadPsi = -2;
 
 struct Sizes {
-  int T, K, S, E, Tm, ni, nv;
+  int B, T, K, Sp, S, E, Tm, ni, nv;
 };
 
-__host__ __device__ inline size_t smem_ints(const Sizes& z) {
-  const size_t S = z.S, E = z.E, ni = z.ni, nv = z.nv;
-  return static_cast<size_t>(z.K)   // count row
-         + S                        // prescreen bit per slot
-         + S * E * (ni + nv + 1)    // phi / psi / valid buffers
-         + S                        // ovf buffer
-         + E * (ni + nv + 1)        // seed phi / psi / valid
-         + static_cast<size_t>(z.Tm) * 6  // token window
-         + E * contain::kSrowFields       // step rows
-         + E * z.Tm                       // predicate bits
-         + E                              // selected candidates
-         + 8;                             // scalars
+// offsets (in ints) of one warp's slice of shared memory, and its size
+// in 64 bits: the launcher refuses a slice too large for a block before
+// the int offsets are used
+struct Layout {
+  int steps, parent, poss, st, ct, nvalid, ovf, acc, ovft, root_phi,
+      root_psi, phi, psi, tok_w, sel;
+  long long total;
+};
+
+Layout make_layout(const Sizes& z) {
+  Layout l;
+  long long o = 0;
+  auto take = [&o](long long n) {
+    const int at = static_cast<int>(o);
+    o += n;
+    return at;
+  };
+  const long long S = z.S, E = z.E;
+  l.steps = take(S * contain::kSrowFields);
+  l.parent = take(S);
+  l.poss = take(S);
+  l.st = take(S);
+  l.ct = take(S);
+  l.nvalid = take(S);
+  l.ovf = take(S);
+  l.acc = take(S);
+  l.ovft = take(S);
+  l.root_phi = take(z.ni);
+  l.root_psi = take(z.nv);
+  l.phi = take(S * E * z.ni);
+  l.psi = take(S * E * z.nv);
+  l.tok_w = take(6LL * z.Tm);
+  l.sel = take(2 * E);
+  l.total = o;
+  return l;
 }
 
-__global__ void __launch_bounds__(kThreads)
-trie_walk_kernel(const int* __restrict__ tok_c, const int* __restrict__ order_c,
-                 const int* __restrict__ start_c,
-                 const int* __restrict__ count_c,
-                 const int* __restrict__ steps, const int* __restrict__ parent,
-                 const int* __restrict__ req, int* __restrict__ acc,
-                 int* __restrict__ ovft, Sizes z) {
+// a gather index as JAX takes it: wrapped once when negative, clamped
+__device__ __forceinline__ int wrap_clamp(int x, int n) {
+  if (x < 0) x += n;
+  return x < 0 ? 0 : (x > n - 1 ? n - 1 : x);
+}
+
+__global__ void __launch_bounds__(kWarp * kMaxWarps)
+trie_walk_kernel(const int* __restrict__ tokens, const int* __restrict__ order,
+                 const int* __restrict__ start, const int* __restrict__ count,
+                 const int* __restrict__ cells,
+                 const int* __restrict__ steps_s,
+                 const int* __restrict__ parent_s,
+                 const int* __restrict__ req_s,
+                 unsigned char* __restrict__ acc,
+                 unsigned char* __restrict__ ovft, int N, Sizes z,
+                 Layout L) {
+  const int lane = threadIdx.x & (kWarp - 1);
+  const int warp = threadIdx.x / kWarp;
+  const long long i =
+      static_cast<long long>(blockIdx.x) * (blockDim.x / kWarp) + warp;
+  if (i >= N) return;  // the whole warp: no block barrier follows
   const int T = z.T, K = z.K, S = z.S, E = z.E, Tm = z.Tm, ni = z.ni,
             nv = z.nv;
-  const int tid = threadIdx.x;
-  const long long i = blockIdx.x;
   extern __shared__ int smem[];
-  int* s_count = smem;
-  int* s_poss = s_count + K;
-  int* phi_buf = s_poss + S;
-  int* psi_buf = phi_buf + S * E * ni;
-  int* valid_buf = psi_buf + S * E * nv;
-  int* ovf_buf = valid_buf + S * E;
-  int* seed_phi = ovf_buf + S;
-  int* seed_psi = seed_phi + E * ni;
-  int* seed_valid = seed_psi + E * nv;
-  int* tok_w = seed_valid + E;
-  int* srow = tok_w + Tm * 6;
-  int* bits = srow + E * contain::kSrowFields;
-  int* sel = bits + E * Tm;
-  int* scal = sel + E;  // 0 n_sel, 1 frontier_ovf, 2 window_ovf
+  int* const w = smem + static_cast<long long>(warp) * L.total;
+  int* const s_steps = w + L.steps;
+  int* const s_parent = w + L.parent;
+  int* const s_poss = w + L.poss;
+  int* const s_st = w + L.st;
+  int* const s_ct = w + L.ct;
+  int* const s_nvalid = w + L.nvalid;
+  int* const s_ovf = w + L.ovf;
+  int* const s_acc = w + L.acc;
+  int* const s_ovft = w + L.ovft;
+  int* const root_phi = w + L.root_phi;
+  int* const root_psi = w + L.root_psi;
+  int* const phi_buf = w + L.phi;
+  int* const psi_buf = w + L.psi;
+  int* const tok_w = w + L.tok_w;
+  int* const sel = w + L.sel;
 
-  const int* tok = tok_c + i * T * 6;
-  const int* order = order_c + i * T;
-  const int* start = start_c + i * K;
-  const int* steps_i = steps + i * S * contain::kSrowFields;
-  const int* parent_i = parent + i * S;
-  const int* req_i = req + i * S * K;
+  // ---- the cell's sequence and subtree, read in place
+  const int b = wrap_clamp(__ldg(cells + 2 * i), z.B);
+  const int s = wrap_clamp(__ldg(cells + 2 * i + 1), z.Sp);
+  const int* const tok = tokens + static_cast<long long>(b) * T * 6;
+  const int* const ord = order + static_cast<long long>(b) * T;
+  const int* const st_row = start + static_cast<long long>(b) * K;
+  const int* const ct_row = count + static_cast<long long>(b) * K;
+  const int* const stp =
+      steps_s + static_cast<long long>(s) * S * contain::kSrowFields;
+  const int* const par = parent_s + static_cast<long long>(s) * S;
+  const int* const rq = req_s + static_cast<long long>(s) * S * K;
 
-  for (int k = tid; k < K; k += blockDim.x) s_count[k] = count_c[i * K + k];
-  // the buffers start at zero, as the plain version's do
-  for (int k = tid; k < S * E * (ni + nv + 1) + S; k += blockDim.x)
-    phi_buf[k] = 0;
-  __syncthreads();
-  // residual prescreen of every slot: count >= req on all keys
-  for (int n = tid; n < S; n += blockDim.x) {
-    int ok = 1;
-    for (int k = 0; k < K && ok; ++k) ok = s_count[k] >= req_i[n * K + k];
-    s_poss[n] = ok;
+  // ---- prologue: step rows, parents, window starts and counts
+  for (int q = lane; q < S * contain::kSrowFields; q += kWarp)
+    s_steps[q] = __ldg(stp + q);
+  for (int n = lane; n < S; n += kWarp) {
+    const int key = __ldg(stp + n * contain::kSrowFields + 7);
+    s_parent[n] = __ldg(par + n);
+    s_st[n] = __ldg(st_row + key);
+    s_ct[n] = __ldg(ct_row + key);
+    // what a slot that never joins leaves: no row, no overflow
+    s_nvalid[n] = 0;
+    s_ovf[n] = 0;
+    s_acc[n] = 0;
+    s_ovft[n] = 0;
   }
-  __syncthreads();
+  for (int c = lane; c < ni; c += kWarp) root_phi[c] = kPadPhi;
+  for (int c = lane; c < nv; c += kWarp) root_psi[c] = kPadPsi;
+  // residual prescreen of every slot, lanes across the keys: a slot
+  // dies on any key with count < req.  The req rows of kBatch slots are
+  // read before any is compared, so that the reads overlap.
+  for (int n0 = 0; n0 < S; n0 += kBatch) {
+    unsigned bad[kBatch];
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u) bad[u] = 0;
+    for (int k0 = 0; k0 < K; k0 += kWarp) {
+      const int k = k0 + lane;
+      const bool kin = k < K;
+      const int cnt = kin ? __ldg(ct_row + k) : 0;
+      int rv[kBatch];
+#pragma unroll
+      for (int u = 0; u < kBatch; ++u)
+        rv[u] = kin && n0 + u < S
+                    ? __ldg(rq + static_cast<long long>(n0 + u) * K + k)
+                    : INT_MIN;
+#pragma unroll
+      for (int u = 0; u < kBatch; ++u)
+        bad[u] |= __ballot_sync(kFull, cnt < rv[u]);
+    }
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u)
+      if (lane == u && n0 + u < S) s_poss[n0 + u] = bad[u] == 0;
+  }
+  __syncwarp();
 
-  const int C = E * Tm * 2;
+  // a lane's first predicate pair and first update cells, divided once
+  const int e_first = lane / Tm, t_first = lane - e_first * Tm;
+  const int r_phi = lane / ni, c_phi = lane - r_phi * ni;
+  const int r_psi = lane / nv, c_psi = lane - r_psi * nv;
+  const unsigned lower = (1u << lane) - 1u;
+
   for (int n = 0; n < S; ++n) {
-    const int* step = steps_i + n * contain::kSrowFields;
-    const int ty = step[0], pu1 = step[1], pu2 = step[2], lab = step[3];
-    const int snew = step[4], idx = step[5], sval = step[6], key = step[7];
-    const int pidx = parent_i[n];
+    // a slot that fails its prescreen keeps the prologue's zeros, so a
+    // slot below it seeds no row and no overflow from it
+    if (!s_poss[n]) continue;
+    const int pidx = s_parent[n];
     const bool isroot = pidx < 0;
     const int pcl = pidx < 0 ? 0 : (pidx > S - 1 ? S - 1 : pidx);
-    const int poss = s_poss[n];
-    const int seed_ovf = isroot ? 0 : ovf_buf[pcl];
-
-    // ---- seed: the parent slot's compacted frontier or the root state
-    for (int k = tid; k < E * ni; k += blockDim.x)
-      seed_phi[k] = isroot ? kPadPhi : phi_buf[pcl * E * ni + k];
-    for (int k = tid; k < E * nv; k += blockDim.x)
-      seed_psi[k] = isroot ? kPadPsi : psi_buf[pcl * E * nv + k];
-    for (int e = tid; e < E; e += blockDim.x)
-      seed_valid[e] = (isroot ? e == 0 : valid_buf[pcl * E + e] != 0) &&
-                      poss != 0;
-    // ---- the step's token window through the inverted index
-    const int st = start[key];
-    const int ct = s_count[key];
-    for (int m = tid; m < Tm; m += blockDim.x) {
-      const int wpos = st + m < T - 1 ? st + m : T - 1;
-      const int* src = tok + static_cast<long long>(order[wpos]) * 6;
-      for (int f = 0; f < 5; ++f) tok_w[m * 6 + f] = src[f];
-      tok_w[m * 6 + 5] = m < ct ? src[5] : 0;
-    }
-    __syncthreads();
-    // ---- per-row step table
-    for (int e = tid; e < E; e += blockDim.x) {
-      const int* ph = seed_phi + e * ni;
-      const int pi = idx - 1 < 0 ? 0 : (idx - 1 > ni - 1 ? ni - 1 : idx - 1);
-      int* r = srow + e * contain::kSrowFields;
-      r[0] = ty; r[1] = pu1; r[2] = pu2; r[3] = lab; r[4] = snew;
-      r[5] = idx > 0 ? ph[pi] : -1;
-      r[6] = ph[idx];
-      r[7] = (seed_valid[e] != 0 && sval > 0) ? 1 : 0;
-    }
-    __syncthreads();
-    // ---- the containment predicate over (row, window token)
-    for (int k = tid; k < E * Tm; k += blockDim.x) {
-      const int e = k / Tm;
-      const int t = k - e * Tm;
-      bits[k] = contain::contain_pred(tok_w + t * 6, seed_psi + e * nv, nv,
-                                      srow + e * contain::kSrowFields);
-    }
-    __syncthreads();
-    // ---- first-E compaction in (row, token, orientation) order
-    if (tid == 0) {
-      int cnt = 0;
-      for (int c = 0; c < C && cnt <= E; ++c) {
-        if ((bits[c >> 1] >> (c & 1)) & 1) {
-          if (cnt < E) sel[cnt] = c;
-          ++cnt;
-        }
+    // a parent slot not yet walked has the plain version's zero buffers:
+    // no valid row and no overflow
+    const bool seen = !isroot && pcl < n;
+    const int seed_n = isroot ? 1 : (seen ? s_nvalid[pcl] : 0);
+    const bool seed_ovf = seen && s_ovf[pcl] != 0;
+    if (seed_n == 0) {  // no row to extend: only the overflow carries on
+      if (seed_ovf) {
+        s_ovf[n] = 1;
+        s_ovft[n] = 1;
+        __syncwarp();
       }
-      int live = 0;
-      for (int e = 0; e < E; ++e) live |= seed_valid[e];
-      scal[0] = cnt < E ? cnt : E;
-      scal[1] = cnt > E;
-      scal[2] = ct > Tm && live;
+      continue;
     }
-    __syncthreads();
-    // ---- phi / psi update into slot n's buffer row
-    const int n_sel = scal[0];
-    const bool is_v = ty <= 2;
-    for (int k = tid; k < E * ni; k += blockDim.x) {
-      const int r = k / ni;
-      const int col = k - r * ni;
-      const bool ok = r < n_sel;
-      const int s = ok ? sel[r] : C - 1;
-      const int e_old = s / (Tm * 2);
-      const int t_w = (s / 2) % Tm;
-      int v = seed_phi[e_old * ni + col];
-      if (col == idx && snew > 0 && ok) v = tok_w[t_w * 6 + 4];
-      phi_buf[n * E * ni + k] = v;
+    int n_sel = 0;
+    bool f_ovf = false;
+    const int* const step = s_steps + n * contain::kSrowFields;
+    const int ty = step[0], pu1 = step[1], pu2 = step[2], lab = step[3];
+    const int snew = step[4], idx = step[5], sval = step[6];
+    const int st = s_st[n], ct = s_ct[n];
+    const bool w_ovf = ct > Tm;
+    const int* const seed_phi = isroot ? root_phi : phi_buf + pcl * E * ni;
+    const int* const seed_psi = isroot ? root_psi : psi_buf + pcl * E * nv;
+    if (sval > 0) {
+      // ---- the step's token window through the inverted index
+      for (int m = lane; m < Tm; m += kWarp) {
+        const int wpos = st + m < T - 1 ? st + m : T - 1;
+        const int* const src =
+            tok + static_cast<long long>(__ldg(ord + wpos)) * 6;
+        int* const dst = tok_w + m * 6;
+#pragma unroll
+        for (int f = 0; f < 5; ++f) dst[f] = __ldg(src + f);
+        dst[5] = m < ct ? __ldg(src + 5) : 0;
+      }
+      __syncwarp();
+      // ---- predicate over (valid row, token) pairs, ballot compaction
+      const int pi = idx - 1 < 0 ? 0 : (idx - 1 > ni - 1 ? ni - 1 : idx - 1);
+      const int npairs = seed_n * Tm;
+      int cnt = 0;
+      for (int base = 0; base < npairs && cnt <= E; base += kWarp) {
+        const int k = base + lane;
+        int bits = 0, e = 0, t = 0;
+        if (k < npairs) {
+          if (base == 0) {
+            e = e_first;
+            t = t_first;
+          } else {
+            e = k / Tm;
+            t = k - e * Tm;
+          }
+          const int* const ph = seed_phi + e * ni;
+          int srow[contain::kSrowFields];
+          srow[0] = ty; srow[1] = pu1; srow[2] = pu2; srow[3] = lab;
+          srow[4] = snew;
+          srow[5] = idx > 0 ? ph[pi] : -1;
+          srow[6] = ph[idx];
+          srow[7] = 1;  // e < seed_n and sval > 0
+          bits = contain::contain_pred(tok_w + t * 6, seed_psi + e * nv,
+                                       nv, srow);
+        }
+        const unsigned b0 = __ballot_sync(kFull, bits & 1);
+        const unsigned b1 = __ballot_sync(kFull, bits & 2);
+        int rank = cnt + __popc(b0 & lower) + __popc(b1 & lower);
+        if (bits & 1) {
+          if (rank < E) {
+            sel[2 * rank] = e;
+            sel[2 * rank + 1] = 2 * t;
+          }
+          ++rank;
+        }
+        if ((bits & 2) && rank < E) {
+          sel[2 * rank] = e;
+          sel[2 * rank + 1] = 2 * t + 1;
+        }
+        cnt += __popc(b0) + __popc(b1);
+      }
+      n_sel = cnt < E ? cnt : E;
+      f_ovf = cnt > E;
+      __syncwarp();
+      // ---- phi / psi of the kept rows into slot n's buffer row
+      int* const out_phi = phi_buf + n * E * ni;
+      for (int q = lane; q < n_sel * ni; q += kWarp) {
+        const int r = q == lane ? r_phi : q / ni;
+        const int c = q == lane ? c_phi : q - r * ni;
+        int v = seed_phi[sel[2 * r] * ni + c];
+        if (c == idx && snew > 0) v = tok_w[(sel[2 * r + 1] >> 1) * 6 + 4];
+        out_phi[q] = v;
+      }
+      const bool is_v = ty <= 2;
+      int* const out_psi = psi_buf + n * E * nv;
+      for (int q = lane; q < n_sel * nv; q += kWarp) {
+        const int r = q == lane ? r_psi : q / nv;
+        const int c = q == lane ? c_psi : q - r * nv;
+        const int to = sel[2 * r + 1];
+        const int* const tw = tok_w + (to >> 1) * 6;
+        const int u1 = tw[1], u2 = tw[2];
+        const int v0 = seed_psi[sel[2 * r] * nv + c];
+        int v = v0;
+        if (c == pu1 && v0 < 0) v = is_v ? u1 : ((to & 1) ? u2 : u1);
+        if (c == pu2 && !is_v && v0 < 0) v = (to & 1) ? u1 : u2;
+        out_psi[q] = v;
+      }
     }
-    for (int k = tid; k < E * nv; k += blockDim.x) {
-      const int r = k / nv;
-      const int col = k - r * nv;
-      const bool ok = r < n_sel;
-      const int s = ok ? sel[r] : C - 1;
-      const int e_old = s / (Tm * 2);
-      const int t_w = (s / 2) % Tm;
-      const int var = s % 2;
-      const int* ps = seed_psi + e_old * nv;
-      const int u1 = tok_w[t_w * 6 + 1], u2 = tok_w[t_w * 6 + 2];
-      const int a = var == 0 ? u1 : u2;
-      const int b = var == 0 ? u2 : u1;
-      const bool fresh1 = ps[pu1] < 0;
-      const bool fresh2 = ps[pu2] < 0;
-      int v = ps[col];
-      if (col == pu1 && fresh1 && ok) v = is_v ? u1 : a;
-      if (col == pu2 && !is_v && fresh2 && ok) v = b;
-      psi_buf[n * E * nv + k] = v;
-    }
-    for (int r = tid; r < E; r += blockDim.x) valid_buf[n * E + r] = r < n_sel;
-    if (tid == 0) {
-      const int f_ovf = scal[1], w_ovf = scal[2];
-      acc[i * S + n] = (n_sel > 0 && poss) ? 1 : 0;
-      ovft[i * S + n] = ((seed_ovf || w_ovf) && poss) ? 1 : 0;
-      ovf_buf[n] = ((seed_ovf || f_ovf || w_ovf) && poss) ? 1 : 0;
-    }
-    __syncthreads();
+    // every lane stores the same value
+    s_nvalid[n] = n_sel;
+    s_ovf[n] = seed_ovf || f_ovf || w_ovf;
+    s_acc[n] = n_sel > 0;
+    s_ovft[n] = seed_ovf || w_ovf;
+    __syncwarp();
+  }
+  for (int n = lane; n < S; n += kWarp) {
+    acc[i * S + n] = s_acc[n];
+    ovft[i * S + n] = s_ovft[n];
   }
 }
 
 }  // namespace
 
 // Plain C entry point, bound from Python with ctypes.  Launches on
-// ``stream`` and returns cudaGetLastError() (0 when the launch was taken).
-extern "C" int trie_walk_launch(const int* tok_c, const int* order_c,
-                                const int* start_c, const int* count_c,
-                                const int* steps, const int* parent,
-                                const int* req, int* acc, int* ovft, int N,
-                                int T, int K, int S, int E, int Tm, int ni,
+// ``stream`` and returns cudaGetLastError() (0 when the launch was taken),
+// or cudaErrorInvalidValue when one cell's buffers exceed what a block
+// may have.
+extern "C" int trie_walk_launch(const int* tokens, const int* order,
+                                const int* start, const int* count,
+                                const int* cells, const int* steps_s,
+                                const int* parent_s, const int* req_s,
+                                unsigned char* acc, unsigned char* ovft,
+                                int N, int B, int T,
+                                int K, int Sp, int S, int E, int Tm, int ni,
                                 int nv, cudaStream_t stream) {
   if (N <= 0 || S <= 0) return 0;
-  const Sizes z{T, K, S, E, Tm, ni, nv};
-  const size_t smem = sizeof(int) * smem_ints(z);
+  const Sizes z{B, T, K, Sp, S, E, Tm, ni, nv};
+  const Layout layout = make_layout(z);
+  const long long slice = 4 * layout.total;
+  int dev = 0, optin = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                         dev);
+  if (slice > optin) return static_cast<int>(cudaErrorInvalidValue);
+  // as many warps (cells) a block as fit the default 48 KB, at most 4
+  long long warps = (48 * 1024) / slice;
+  warps = warps < 1 ? 1 : (warps > kMaxWarps ? kMaxWarps : warps);
+  const size_t smem = static_cast<size_t>(warps * slice);
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         trie_walk_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -249,7 +386,10 @@ extern "C" int trie_walk_launch(const int* tok_c, const int* order_c,
       return static_cast<int>(err);
     }
   }
-  trie_walk_kernel<<<N, kThreads, smem, stream>>>(
-      tok_c, order_c, start_c, count_c, steps, parent, req, acc, ovft, z);
+  const long long blocks = (N + warps - 1) / warps;
+  trie_walk_kernel<<<static_cast<unsigned>(blocks),
+                     static_cast<unsigned>(warps * kWarp), smem, stream>>>(
+      tokens, order, start, count, cells, steps_s, parent_s, req_s, acc,
+      ovft, N, z, layout);
   return static_cast<int>(cudaGetLastError());
 }

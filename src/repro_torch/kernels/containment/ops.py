@@ -16,6 +16,8 @@ from .ref import SROW_FIELDS, contain_step_core
 
 # kernel launches made by this process (the plain version never counts)
 launches = 0
+# the kernel indexes in 32 bits: no tensor of a call may hold more ints
+MAX_ELEMENTS = 2**31 - 1
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -51,6 +53,10 @@ def contain_step(tok, psi, srow):
         return contain_step_core(tok, psi, srow)
     if device.type != "cuda":
         raise ValueError(f"containment runs on cpu or cuda, not {device}")
+    most = max(G * Ein * Tm, tok.numel(), psi.numel(), srow.numel())
+    if most > MAX_ELEMENTS:
+        raise ValueError(f"a tensor of {most} elements is more than the "
+                         f"kernel indexes ({MAX_ELEMENTS})")
     for name, x in (("tok", tok), ("psi", psi), ("srow", srow)):
         if not x.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
@@ -66,8 +72,6 @@ def contain_step(tok, psi, srow):
             G, Ein, Tm, NV, torch.cuda.current_stream(device).cuda_stream,
         )
     if err != 0:
-        # the launcher refuses sizes that need more shared memory a
-        # block than the card has (CUDA error 1, invalid value)
         raise RuntimeError(f"contain_step launch failed at G={G}, Ein={Ein}, "
                            f"Tm={Tm}, NV={NV}: CUDA error {err}")
     global launches

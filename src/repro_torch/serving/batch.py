@@ -59,7 +59,7 @@ import torch
 from ..kernels.containment.ops import contain_step
 from ..kernels.trie_walk import ref as _fused_ref
 from ..kernels.trie_walk.ref import gather_rows
-from ..kernels.trie_walk.ops import trie_walk
+from ..kernels.trie_walk.ops import trie_walk_cells
 from ..mining.encoding import PAD_PHI, PAD_PSI
 from .trie import REQ_MASKED
 
@@ -462,20 +462,17 @@ def index_and_node_prescreen(tokens, node_req, *, n_label_keys: int):
 def fused_trie_walk(tokens, order, start, count, cells, steps_s, parent_s,
                     req_s, *, ni: int, nv: int, emax: int, tmax: int):
     """Walk N (sequence, depth-1 subtree) cells through their *entire*
-    subtree in one launch of the trie-walk kernel.  The per-cell gathers
-    (the sequence's token table + index rows by ``cells[:, 0]``, the
-    packed subtree tables by ``cells[:, 1]``) run in front of it.
-    Returns ``(acc [N, Nmax] bool, ovf_term [N, Nmax] bool)`` per
-    subtree slot, bit-identical to the per-level ladder.  ``ni`` must be
-    the *global* trie depth."""
+    subtree in one launch of the trie-walk kernel.  Cell i walks the
+    packed subtree ``cells[i, 1]`` over the sequence ``cells[i, 0]``'s
+    token table and index rows.  On CUDA the kernel reads those tables
+    in place through ``cells`` (no per-cell copy runs in front of it);
+    on the CPU the plain version gathers them.  Returns ``(acc [N, Nmax]
+    bool, ovf_term [N, Nmax] bool)`` per subtree slot, bit-identical to
+    the per-level ladder.  ``ni`` must be the *global* trie depth."""
     global fused_walks
-    cell_b = cells[:, 0].long()
-    s_idx = cells[:, 1].long()
-    tokens = tokens.to(_I32)
-    out = trie_walk(
-        tokens[cell_b], order[cell_b], start[cell_b], count[cell_b],
-        steps_s[s_idx], parent_s[s_idx], req_s[s_idx],
-        emax=emax, tmax=tmax, ni=ni, nv=nv,
+    out = trie_walk_cells(
+        tokens.to(_I32), order, start, count, cells, steps_s, parent_s,
+        req_s, emax=emax, tmax=tmax, ni=ni, nv=nv,
     )
     fused_walks += 1
     return out

@@ -14,7 +14,8 @@ from repro.kernels.containment.containment import contain_step_blocked
 from repro.kernels.containment.ref import contain_step_core as jax_core
 from repro_torch.kernels import _build
 from repro_torch.kernels.containment import ops, ref
-from contain_inputs import SHAPES, contain_inputs
+from contain_inputs import EDGE_SHAPES, SHAPES, contain_inputs, \
+    matching_inputs
 
 
 def _torch(*arrays):
@@ -36,6 +37,19 @@ def test_plain_matches_jax(G, E, Tm):
                                   want)
     if G * E * Tm > 2000:
         assert (want & 1).any()
+
+
+@pytest.mark.parametrize("G,E,Tm", EDGE_SHAPES)
+def test_plain_matches_jax_past_the_gates(G, E, Tm):
+    """The kernel's edge shapes on inputs whose pairs pass the cheap
+    gates: the plain version is bit-equal to the jnp reference and
+    gives every mask value, so a comparison on these inputs is not one
+    of zeros."""
+    args = matching_inputs(np.random.default_rng(G + E + Tm), G, E, Tm)
+    want = np.asarray(jax_core(*[jnp.asarray(a) for a in args]))
+    got = ops.contain_step(*_torch(*args))
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert set(np.unique(want)) == {0, 1, 2, 3}
 
 
 def test_plain_matches_pallas_interpret():

@@ -1,8 +1,9 @@
 """The fused trie-walk port vs the JAX package: the plain PyTorch
-version (the wrapper on CPU tensors) bit-equal to the jnp walk core on
-the packed subtrees of a mined bank, with and without tombstoned
-(``REQ_MASKED``) slots.  The CUDA kernel itself is tested on an sm_90
-device by test_torch_serving_cuda.py."""
+version (the wrappers on CPU tensors) bit-equal to the jnp walk core on
+the packed subtrees of a mined bank, and the gathered entry bit-equal to
+JAX's ``fused_trie_walk`` on the tables and cells a server holds, with
+and without tombstoned (``REQ_MASKED``) slots.  The CUDA kernel itself
+is tested on an sm_90 device by test_torch_serving_cuda.py."""
 import jax
 import numpy as np
 import pytest
@@ -14,19 +15,23 @@ from repro.kernels.trie_walk import trie_walk_core
 from repro.mining.driver import AcceleratedMiner
 from repro.mining.encoding import encode_db
 from repro.serving.bank import compile_bank
-from repro.serving.batch import build_token_index, max_key_bucket
+from repro.serving.batch import (build_token_index, fused_trie_walk,
+                                 max_key_bucket)
 from repro.serving.trie import REQ_MASKED, build_trie, pack_subtrees
 from repro_torch.kernels.trie_walk import ops
 
 jax_walk = jax.jit(trie_walk_core,
                    static_argnames=("emax", "tmax", "ni", "nv"))
+jax_fused = jax.jit(fused_trie_walk,
+                    static_argnames=("emax", "tmax", "ni", "nv"))
+N_PAD = 5  # zero rows after the real cells, as a server pads a batch
 
 
 @pytest.fixture(scope="module")
-def walk_inputs():
-    """Every (query, subtree shard) cell of a mined bank against a query
-    batch: the per-cell token tables, index rows and packed subtrees
-    the server hands the fused walk."""
+def walk_tables():
+    """A mined bank's packed subtrees and a query batch's token table
+    and inverted index, as a server holds them, and the cells of every
+    (query, subtree shard) pair followed by ``N_PAD`` zero rows."""
     db = random_db(7, n_seq=8, n_steps=4, n_v=4)
     queries = random_db(8, n_seq=12, n_steps=5, n_v=5)
     bank = compile_bank(AcceleratedMiner(db).mine_rs(2, max_len=4))
@@ -39,11 +44,26 @@ def walk_inputs():
     req = pack.pack_req(trie.node_req.reshape(trie.n_nodes, -1))
     b, s = np.meshgrid(np.arange(len(queries)), np.arange(pack.n_subtrees),
                        indexing="ij")
-    b, s = b.ravel(), s.ravel()
-    args = [tdb.tokens[b], order[b], start[b], count[b], pack.steps[s],
-            pack.parent[s], req[s]]
+    cells = np.zeros((b.size + N_PAD, 2), np.int32)
+    cells[:b.size, 0] = b.ravel()
+    cells[:b.size, 1] = s.ravel()
+    tables = [tdb.tokens, order, start, count, cells, pack.steps,
+              pack.parent, req]
     dims = dict(tmax=max_key_bucket(tdb.tokens, bank.n_label_keys),
                 ni=trie.depth, nv=bank.nv)
+    return [np.array(a, np.int32, order="C") for a in tables], dims
+
+
+@pytest.fixture(scope="module")
+def walk_inputs(walk_tables):
+    """Every (query, subtree shard) cell of a mined bank against a query
+    batch: the per-cell token tables, index rows and packed subtrees
+    the server hands the fused walk."""
+    (tokens, order, start, count, cells, steps, parent, req), dims = \
+        walk_tables
+    b, s = cells[:-N_PAD, 0], cells[:-N_PAD, 1]
+    args = [tokens[b], order[b], start[b], count[b], steps[s], parent[s],
+            req[s]]
     return [np.ascontiguousarray(a, np.int32) for a in args], dims
 
 
@@ -81,4 +101,51 @@ def test_wrapper_checks_inputs(walk_inputs):
         ops.trie_walk(*t, emax=0, **dims)
     before = ops.launches
     ops.trie_walk(*t, emax=2, **dims)
+    assert ops.launches == before  # the plain version never counts
+
+
+@pytest.mark.parametrize("emax,masked,narrow", [(1, False, False),
+                                                (4, True, True)])
+def test_plain_cells_match_jax(walk_tables, emax, masked, narrow):
+    """ops.trie_walk_cells on CPU tensors (the gathers, then the plain
+    walk) is bit-equal to repro.serving.batch.fused_trie_walk on the
+    same tables and cells, the pad cells included."""
+    tables, dims = walk_tables
+    tables = [a.copy() for a in tables]
+    req = tables[7]
+    if masked:
+        kill = np.random.default_rng(emax).random(req.shape[:2]) < 0.3
+        req[kill] = REQ_MASKED
+    kw = dict(dims, emax=emax)
+    if narrow:
+        kw["tmax"] = 1
+    want = [np.asarray(x) for x in
+            jax_fused(*[jnp.asarray(a) for a in tables], **kw)]
+    got = ops.trie_walk_cells(*[torch.from_numpy(a) for a in tables], **kw)
+    n = len(tables[4])
+    for g, w in zip(got, want):
+        assert g.dtype == torch.bool and g.shape == (n, req.shape[1])
+        np.testing.assert_array_equal(g.numpy(), w)
+    # a pad row walks cell (0, 0)
+    np.testing.assert_array_equal(want[0][-N_PAD:],
+                                  np.repeat(want[0][:1], N_PAD, axis=0))
+    assert want[0].any() and want[1].any()
+    if masked:
+        s = tables[4][:, 1]
+        assert not (want[0][kill[s]].any() or want[1][kill[s]].any())
+
+
+def test_cells_wrapper_checks_inputs(walk_tables):
+    tables, dims = walk_tables
+    t = [torch.from_numpy(a) for a in tables]
+    with pytest.raises(ValueError):  # cells must be [N, 2]
+        ops.trie_walk_cells(*t[:4], t[4][:, :1], *t[5:], emax=2, **dims)
+    with pytest.raises(ValueError):  # req_s must be [Sp, S, K]
+        ops.trie_walk_cells(*t[:7], t[7][:, :, :1], emax=2, **dims)
+    with pytest.raises(TypeError):
+        ops.trie_walk_cells(*t[:4], t[4].long(), *t[5:], emax=2, **dims)
+    with pytest.raises(ValueError):
+        ops.trie_walk_cells(*t, emax=2, **dict(dims, tmax=0))
+    before = ops.launches
+    ops.trie_walk_cells(*t, emax=2, **dims)
     assert ops.launches == before  # the plain version never counts
