@@ -9,16 +9,22 @@ line) on any failure:
 1. card and build: prints the card's name and power limit, builds every
    kernel from ``src/repro_torch/csrc`` (one ``nvcc`` per source, all
    started together) and prints the build times;
-2. kernels vs their plain PyTorch versions, on the card, at the main
-   path's shapes: bit-equality, then timings (CUDA events) of the kernel
-   and the plain version beside the kernel's bound;
+2. match_count vs its plain PyTorch version, on the card: bit-equality
+   in both forms on random inputs at the main path's widths and on the
+   edge existing tables and pid layouts of the tests
+   (``tests/scan_inputs.py``) over E in 1/5/37/129/1024 x T in
+   1/31/32/33/64/300 and at the tests' other widths (NI, NV, P), then
+   timings (CUDA events) of the kernel and the plain version beside the
+   kernel's bound;
 3. the main path: ``AcceleratedMiner(device="cuda").mine_rs`` on the
    paper's Table 3 default DB (1000 sequences, seed 0, sigma 100,
    max_len 6), held to the port's host oracle
    ``repro_torch.core.reverse_search.mine_gtrace_rs``; the launch counts
    are zeroed just before and read just after, and every kernel of the
    path must have launched, once per device call; a second, profiled run
-   reports the device time by kernel;
+   reports the device time by kernel; a third records the arguments of
+   the run's first full 1024-row scan, on which match_count is held to
+   its plain version and timed beside its bound;
 4. the launcher's ``--algo both`` self-check on ``cuda`` at its default
    size (GTRACE.relevant() == GTRACE-RS);
 5. the serving kernels vs their plain versions on the card: contain_step
@@ -78,6 +84,12 @@ PEAK_OPS_PER_S = None
 # DB): e_batch 1024, max_itemsets 16, max_vertices 12, MAX_PATTERN_TRS
 # 64, wave_patterns 256; T = 33 tokens per sequence
 G, T, NI, NV, P, NP = 1000, 33, 16, 12, 64, 256
+# match_count's edge sweep: rows per block of 1 to 32, a block of one
+# row wider than 256 threads, and a ragged last block
+EDGE_E = (1, 5, 37, 129, 1024)
+EDGE_T = (1, 31, 32, 33, 64, 300)
+# the (E, T) of match_count's cases at the tests' other widths
+WIDTH_SHAPES = ((1, 1), (37, 33), (129, 31), (5, 300))
 # csrc sources, one nvcc each, all built together
 KERNELS = ("match_count", "containment", "trie_walk")
 # the serving phase: Table 3 queries (seed 1) against phase 3's bank
@@ -204,31 +216,66 @@ def _scan_inputs(rng, E, mode):
     return tokens, gid, phi, psi, valid, pid, ex, nv, npat, modes
 
 
-def _bound_ms(args, sigs_shape):
+def _bound_ms(args):
     """Least time for one scan on these inputs: the bytes it must move
     (the gathered token and existing rows it references, the per-row
     and per-pattern inputs, the output) over HBM bandwidth, against the
-    int32 operations these inputs need over the 32-bit peak."""
+    int32 operations these inputs need over the 32-bit peak.  Returns
+    the bound, what bounds it, the bytes, the operations, and the
+    operations as PR 11-13 counted them (the duplicate check over all P
+    rows of a table, padding included)."""
     import torch
 
+    from repro_torch.kernels import gather_index
+
     tokens, gid, phi, psi, valid, pid, ex, nv, npat, modes = args
-    n_g = int(torch.unique(gid).numel())
-    n_p = int(torch.unique(pid).numel())
-    E = gid.shape[0]
-    nbytes = 4 * (n_g * T * 6 + n_p * P * 5 + E * (NI + NV + 3)
-                  + 3 * n_p + sigs_shape[0] * sigs_shape[1])
-    tok = tokens[gid.long()]                        # [E,T,6]
+    T_ = tokens.shape[1]
+    E, NI_ = phi.shape
+    NV_ = psi.shape[1]
+    P_ = ex.shape[1]
+    g = gather_index(gid, tokens.shape[0])
+    p = gather_index(pid, ex.shape[0])
+    n_g = int(torch.unique(g).numel())
+    n_p = int(torch.unique(p).numel())
+    nbytes = 4 * (n_g * T_ * 6 + n_p * P_ * 5 + E * (NI_ + NV_ + 3)
+                  + 3 * n_p + E * T_)
+    tok = tokens[g]                                 # [E,T,6]
     active = (tok[..., 5] > 0) & (valid[:, None] > 0)
     in_any = (phi[:, None, :] == tok[..., 4:5]).any(-1) & active
     # per active pair: two psi lookups, the phi position and gap count,
-    # ~30 scalar ops (gates, slot, packing); the duplicate check (5
-    # compares per existing row) only for in-itemset slots
-    ops = (int(active.sum()) * (2 * NV + 2 * NI + 30)
-           + int(in_any.sum()) * 5 * P)
+    # ~30 scalar ops (gates, slot, packing); the duplicate check, only
+    # for in-itemset slots, 5 compares per row of the pattern's table
+    # that can match (itemset field >= 0: the slot is)
+    real = (ex[..., 0] >= 0).sum(-1)[p]             # [E]
+    base = int(active.sum()) * (2 * NV_ + 2 * NI_ + 30)
+    ops = base + 5 * int((in_any.sum(-1) * real).sum())
+    ops_all_rows = base + int(in_any.sum()) * 5 * P_
     bytes_ms = 1e3 * nbytes / PEAK_BYTES_PER_S
     ops_ms = 1e3 * ops / PEAK_OPS_PER_S
-    return max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms
-                                   else "operations"), nbytes, ops
+    return (max(bytes_ms, ops_ms),
+            "bytes" if bytes_ms >= ops_ms else "operations",
+            nbytes, ops, ops_all_rows)
+
+
+def _time_match_count(what, args, reps, plain_reps):
+    """Time match_count and its plain version on ``args`` (CUDA
+    events) and log both beside the bound: (ms, plain_ms, bound)."""
+    from repro_torch.kernels.match_count import ops, ref
+
+    ms, host_ms = _time_ms(lambda: ops.match_signatures_batch(*args),
+                           reps=reps)
+    plain_ms, plain_host_ms = _time_ms(
+        lambda: ref.match_signatures_batch_ref(*args), reps=plain_reps)
+    bound = _bound_ms(args)
+    E_, T_ = args[2].shape[0], args[0].shape[1]
+    log(f"[match_count] {what} E={E_} T={T_}: kernel {ms:.5f} ms device "
+        f"(median), {host_ms:.5f} ms per wrapper call on the host; plain "
+        f"{plain_ms:.5f} ms device, {plain_host_ms:.5f} ms host; bound "
+        f"{bound[0]:.6f} ms by {bound[1]} ({bound[2]} B, {bound[3]} int "
+        f"ops over the tables' rows that can match; {bound[4]} counted "
+        f"over all {args[6].shape[1]} rows); library_ms null (no single "
+        f"PyTorch call computes this)")
+    return ms, plain_ms, bound
 
 
 def phase_build() -> dict:
@@ -288,19 +335,55 @@ def phase_match_count() -> dict:
         f"comparisons (E in 1/37/1024, T={T}, NI={NI}, NV={NV}, P={P}, "
         f"NP={NP}, 4 modes + mixed, per-row + scalar)")
 
+    # the edge tables and pid layouts of the tests, both forms, at the
+    # main path's widths over the edge sweep and at the tests' other
+    # widths over a few shapes
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    from scan_inputs import PIDS, TABLES, WIDTHS, scan_inputs
+
+    cases = [(10 + TABLES.index(tables), tables, NI, NV, P,
+              [(E, T_) for E in EDGE_E for T_ in EDGE_T])
+             for tables in TABLES]
+    cases += [(100 + 7 * WIDTHS.index(w) + TABLES.index(tables), tables,
+               *w, WIDTH_SHAPES) for w in WIDTHS for tables in TABLES]
+    n_cmp = 0
+    for seed, tables, NI_, NV_, P_, shapes in cases:
+        rng = np.random.default_rng(seed)
+        for i, (E, T_) in enumerate(shapes):
+            pids = PIDS[i % len(PIDS)]
+            NP_ = 1 if pids == "one" else 64
+            arrays = scan_inputs(rng, E, 40, T_, NI_, NV_, P_, NP_,
+                                 tables=tables, pids=pids)
+            modes = rng.integers(0, 4, (NP_,)).astype(np.int32)
+            args = [torch.from_numpy(a).to(dev) for a in (*arrays, modes)]
+            tokens, gid, phi, psi, valid, _, ex = args[:7]
+            scal = (int(arrays[7][0]), int(arrays[8][0]), int(modes[0]))
+            for form, got, want in (
+                    ("per-row", ops.match_signatures_batch(*args),
+                     ref.match_signatures_batch_ref(*args)),
+                    ("scalar", ops.match_signatures_kernel(
+                        tokens, gid, phi, psi, valid, ex[0], *scal),
+                     ref.match_signatures_ref(
+                        tokens, gid, phi, psi, valid, ex[0], *scal))):
+                torch.cuda.synchronize()
+                max_err = max(max_err, _abs_err(got, want))
+                if not torch.equal(got, want):
+                    raise AssertionError(
+                        f"match_count {form} tables={tables} pids={pids} "
+                        f"NI={NI_} NV={NV_} P={P_} E={E} T={T_}: "
+                        f"{int((got != want).sum())} signatures differ")
+                n_cmp += 1
+    log(f"[match_count] bit-equal to the plain version in {n_cmp} more "
+        f"comparisons: tables {'/'.join(TABLES)} x E in "
+        f"{'/'.join(map(str, EDGE_E))} x T in {'/'.join(map(str, EDGE_T))}"
+        f" at NI={NI}, NV={NV}, P={P}, and x (E, T) in {WIDTH_SHAPES} at "
+        f"(NI, NV, P) in {WIDTHS}; pid layouts {'/'.join(PIDS)} in turn, "
+        f"per-row + scalar")
+
     args = [torch.from_numpy(a).to(dev)
             for a in _scan_inputs(np.random.default_rng(1), 1024, None)]
-    ms, host_ms = _time_ms(lambda: ops.match_signatures_batch(*args),
-                           reps=200)
-    plain_ms, plain_host_ms = _time_ms(
-        lambda: ref.match_signatures_batch_ref(*args), reps=10)
-    bound_ms, bound_by, nbytes, nops = _bound_ms(args, (1024, T))
-    log(f"[match_count] E=1024 T={T}: kernel {ms:.5f} ms device (median), "
-        f"{host_ms:.5f} ms per wrapper call on the host; plain "
-        f"{plain_ms:.5f} ms device, {plain_host_ms:.5f} ms host; bound "
-        f"{bound_ms:.6f} ms by {bound_by} ({nbytes} B, {nops} int ops); "
-        f"{ops.launches} launches so far; library_ms null (no single "
-        f"PyTorch call computes this)")
+    ms, plain_ms, (bound_ms, bound_by, *_) = _time_match_count(
+        "random inputs", args, reps=200, plain_reps=10)
     return {
         "name": "match_count", "route": "cuda",
         "source": "src/repro_torch/csrc/match_count.cu",
@@ -360,7 +443,62 @@ def phase_main_path() -> dict:
         torch.cuda.synchronize()
     prof_wall = time.perf_counter() - t0
     _log_device_times("[profile]", prof, prof_wall, wall)
-    return launches, res
+    return launches, res, _record_chunk(db, sigma, max_len)
+
+
+def _record_chunk(db, sigma, max_len):
+    """The arguments of one full 1024-row scan of a third run of the
+    Table 3 mining, recorded as ``serving_setup`` records the serving
+    kernels' calls: of the scans whose 1024 rows are all valid, the
+    first that spans the most patterns (the deepest waves: up to 11
+    patterns and 5 real rows a table)."""
+    from repro_torch.mining import driver
+    from repro_torch.mining.driver import AcceleratedMiner
+
+    orig = driver.match_signatures_batch
+    chunks = []
+
+    def record(*args):
+        pid = args[5]
+        if args[1].shape[0] == 1024 and bool((args[4] > 0).all()):
+            runs = int((pid[1:] != pid[:-1]).sum()) + 1
+            if not chunks or runs > chunks[0][0]:
+                chunks[:] = [(runs, [a.clone() for a in args])]
+        return orig(*args)
+
+    driver.match_signatures_batch = record
+    try:
+        AcceleratedMiner(db, device="cuda").mine_rs(sigma, max_len=max_len)
+    finally:
+        driver.match_signatures_batch = orig
+    if not chunks:
+        raise AssertionError("the Table 3 run made no full 1024-row scan")
+    return chunks[0][1]
+
+
+def phase_match_count_chunk(chunk) -> int:
+    """match_count on the recorded Table 3 chunk: bit-equal to its plain
+    version, then timed beside its bound.  Returns the largest absolute
+    difference (0)."""
+    import torch
+
+    from repro_torch.kernels.match_count import ops, ref
+
+    got = ops.match_signatures_batch(*chunk)
+    want = ref.match_signatures_batch_ref(*chunk)
+    torch.cuda.synchronize()
+    if not torch.equal(got, want):
+        raise AssertionError(f"match_count on the Table 3 chunk: "
+                             f"{int((got != want).sum())} signatures differ")
+    pid = chunk[5]
+    log(f"[match_count] Table 3 chunk: bit-equal to the plain version "
+        f"({int((want >= 0).sum())} signatures; "
+        f"{int(torch.unique(pid).numel())} patterns over 1024 rows, "
+        f"{int((pid[1:] != pid[:-1]).sum()) + 1} runs; tables of "
+        f"{chunk[6].shape[0]} x {chunk[6].shape[1]} rows, at most "
+        f"{int((chunk[6][..., 0] >= 0).sum(-1).max())} real)")
+    _time_match_count("Table 3 chunk", chunk, reps=200, plain_reps=10)
+    return _abs_err(got, want)
 
 
 def _log_device_times(tag, prof, prof_wall, wall, top_n=6):
@@ -970,7 +1108,9 @@ def main() -> int:
 
     phase_build()
     kernels = [phase_match_count()]
-    launches, res = phase_main_path()
+    launches, res, chunk = phase_main_path()
+    kernels[0]["max_abs_err"] = max(kernels[0]["max_abs_err"],
+                                    phase_match_count_chunk(chunk))
     phase_launcher()
     setup = serving_setup(res)
     kernels += phase_serving_kernels(setup)

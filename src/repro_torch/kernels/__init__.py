@@ -34,6 +34,15 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
     return device
 
 
+def gather_index(idx: torch.Tensor, n: int) -> torch.Tensor:
+    """``idx`` as JAX's gather takes it into an axis of ``n`` entries:
+    wrapped once when negative, then clamped into ``[0, n - 1]``.  An
+    int64 tensor, ready to index with; the kernels read their indices
+    the same way."""
+    idx = idx.long()
+    return torch.where(idx < 0, idx + n, idx).clamp(0, max(n - 1, 0))
+
+
 def check_int32(name: str, x, ndim: int, device: torch.device) -> None:
     """Raise unless ``x`` is an int32 tensor of ``ndim`` dims on
     ``device``: what every kernel wrapper checks before it chooses."""

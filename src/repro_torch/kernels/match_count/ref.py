@@ -16,6 +16,7 @@ from __future__ import annotations
 
 import torch
 
+from .. import gather_index
 from ...mining.encoding import (
     INVALID_SIG,
     SENT_V,
@@ -143,9 +144,10 @@ def match_core(tok, phi, psi, emb_valid, existing, nv, n_pat, mode):
 def match_signatures_ref(tokens, gid, phi, psi, emb_valid, existing, nv,
                          n_pat, mode):
     """Scalar form with the token gather: tokens [G,T,6], gid [E],
-    existing [P,5] shared by every row, scalars nv/n_pat/mode."""
-    return match_core(tokens[gid.long()], phi, psi, emb_valid, existing,
-                      nv, n_pat, mode)
+    existing [P,5] shared by every row, scalars nv/n_pat/mode.  ``gid``
+    is taken as JAX's gather takes it (``gather_index``)."""
+    tok = tokens[gather_index(gid, tokens.shape[0])]
+    return match_core(tok, phi, psi, emb_valid, existing, nv, n_pat, mode)
 
 
 def match_signatures_batch_ref(tokens, gid, phi, psi, emb_valid, pid,
@@ -153,9 +155,14 @@ def match_signatures_batch_ref(tokens, gid, phi, psi, emb_valid, pid,
                                mode_stack):
     """Per-row form with the gathers: ``pid`` [E] indexes the
     per-pattern tables ``ex_stack`` [NP,P,5] and ``nv_stack`` /
-    ``npat_stack`` / ``mode_stack`` [NP]."""
-    p = pid.long()
+    ``npat_stack`` / ``mode_stack`` [NP].  ``gid`` and ``pid`` are taken
+    as JAX's gather takes them (``gather_index``), each table by its own
+    length."""
+    def by_pid(table):
+        return table[gather_index(pid, table.shape[0])]
+
     return match_core(
-        tokens[gid.long()], phi, psi, emb_valid, ex_stack[p],
-        nv_stack[p], npat_stack[p], mode_stack[p],
+        tokens[gather_index(gid, tokens.shape[0])], phi, psi, emb_valid,
+        by_pid(ex_stack), by_pid(nv_stack), by_pid(npat_stack),
+        by_pid(mode_stack),
     )

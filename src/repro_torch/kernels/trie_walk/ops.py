@@ -15,7 +15,7 @@ import ctypes
 
 import torch
 
-from .. import _build, check_int32
+from .. import _build, check_int32, gather_index
 from .ref import trie_walk_core
 
 # kernel launches made by this process (the plain version never counts)
@@ -107,7 +107,9 @@ def trie_walk_cells(tokens, order, start, count, cells, steps_s, parent_s,
     tokens [B,T,6], order [B,T], start / count [B,K], cells [N,2],
     steps_s [Sp,S,8], parent_s [Sp,S], req_s [Sp,S,K]; all int32 on one
     device.  On a CPU tensor the tables are gathered by cell and walked
-    by the plain version; the kernel reads them in place."""
+    by the plain version; the kernel reads them in place.  Either way a
+    cell's indices are taken as JAX's gather takes them: wrapped once
+    when negative, then clamped into range (``gather_index``)."""
     device = tokens.device
     args = {"tokens": tokens, "order": order, "start": start,
             "count": count, "cells": cells, "steps_s": steps_s,
@@ -125,8 +127,8 @@ def trie_walk_cells(tokens, order, start, count, cells, steps_s, parent_s,
                          "req_s": (Sp, S, K)})
     _check_dims(emax, tmax, ni, nv)
     if device.type == "cpu":
-        b = cells[:, 0].long()
-        s = cells[:, 1].long()
+        b = gather_index(cells[:, 0], B)
+        s = gather_index(cells[:, 1], Sp)
         return trie_walk_core(tokens[b], order[b], start[b], count[b],
                               steps_s[s], parent_s[s], req_s[s],
                               emax=emax, tmax=tmax, ni=ni, nv=nv)

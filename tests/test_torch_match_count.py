@@ -20,9 +20,11 @@ from repro.mining.encoding import (
 from repro.mining.engine import (
     match_signatures as jax_scalar_ref,
     match_signatures_batch as jax_batch_ref,
+    match_signatures_batch_ref as jax_batch_eager,
+    match_signatures_ref as jax_scalar_eager,
 )
 from repro_torch.kernels.match_count import ops, ref
-from scan_inputs import SHAPES, scan_inputs
+from scan_inputs import PIDS, SHAPES, TABLES, scan_inputs
 
 def _torch(*arrays):
     return [torch.from_numpy(np.ascontiguousarray(a)) for a in arrays]
@@ -48,6 +50,76 @@ def test_per_row_plain_matches_jax(E, T, mode):
     np.testing.assert_array_equal(got.numpy(), want)
     if E * T > 100:
         assert (want >= 0).any() and (want < 0).any()
+
+
+@pytest.mark.parametrize("tables", TABLES[1:])
+@pytest.mark.parametrize("pids", PIDS)
+def test_edge_tables_plain_matches_jax(tables, pids):
+    """Both forms of the plain version on the edge existing tables and
+    pid layouts of scan_inputs (a real row after a -9 row, all P = 64
+    rows real, itemset fields >= NI or negative but not -9, a row that
+    differs from a duplicate only in its label) are bit-equal to the
+    JAX package's; the duplicate rows do reject candidates."""
+    E, T, G, NI, NV, P = 37, 33, 5, 16, 12, 64
+    NP = 1 if pids == "one" else 6
+    rng = np.random.default_rng(TABLES.index(tables) * 10
+                                + PIDS.index(pids))
+    arrays = scan_inputs(rng, E, G, T, NI, NV, P, NP, tables=tables,
+                         pids=pids)
+    mode_stack = rng.integers(0, 4, (NP,)).astype(np.int32)
+    args = (*arrays, mode_stack)
+    want = np.asarray(jax_batch_ref(*[jnp.asarray(a) for a in args]))
+    got = ops.match_signatures_batch(*_torch(*args))
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert (want >= 0).any()
+    if tables != "odd_itemset":
+        # in the root phase, where every candidate is allowed, the
+        # duplicate rows reject some that empty tables let through
+        root = np.zeros_like(mode_stack)
+        empty = np.full_like(arrays[6], -9)
+        kept = ops.match_signatures_batch(*_torch(*arrays, root))
+        bare = ops.match_signatures_batch(*_torch(*arrays[:6], empty,
+                                                  *arrays[7:], root))
+        assert ((bare.numpy() >= 0) & (kept.numpy() < 0)).any()
+    tokens, gid, phi, psi, valid, _, ex_stack = arrays[:7]
+    scal = (int(arrays[7][0]), int(arrays[8][0]), int(mode_stack[0]))
+    jargs = [jnp.asarray(a) for a in (tokens, gid, phi, psi, valid,
+                                      ex_stack[0])]
+    want = np.asarray(jax_scalar_ref(*jargs, *map(jnp.int32, scal)))
+    got = ref.match_signatures_ref(*_torch(tokens, gid, phi, psi, valid,
+                                           ex_stack[0]), *scal)
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("form", ["scalar", "per_row"])
+def test_out_of_range_indices_match_jax(form):
+    """gid and pid holding -1, -(n+3), n and n+7: the plain version takes
+    them as JAX's gather does (wrapped once when negative, then clamped)
+    and gives repro.mining.engine's result where plain indexing would
+    raise."""
+    E, G, T, NI, NV, P, NP = 12, 5, 9, 8, 8, 16, 4
+    rng = np.random.default_rng(5)
+    arrays = scan_inputs(rng, E, G, T, NI, NV, P, NP, tables="last_field")
+    tokens, gid, phi, psi, valid, pid, ex_stack, nv_stack, npat_stack = \
+        arrays
+    valid[:] = 1
+    gid[:4] = (-1, -(G + 3), G, G + 7)
+    pid[4:8] = (-1, -(NP + 3), NP, NP + 7)
+    gid[8:] = (-1, -(G + 3), G, G + 7)
+    pid[8:] = (NP + 7, NP, -(NP + 3), -1)
+    if form == "scalar":
+        args = (tokens, gid, phi, psi, valid, ex_stack[1])
+        want = np.asarray(jax_scalar_eager(
+            *[jnp.asarray(a) for a in args], jnp.int32(3), jnp.int32(2),
+            jnp.int32(0)))
+        got = ref.match_signatures_ref(*_torch(*args), 3, 2, 0)
+    else:
+        mode_stack = np.array([0, 3, 2, 0], np.int32)
+        args = (*arrays, mode_stack)
+        want = np.asarray(jax_batch_eager(*[jnp.asarray(a) for a in args]))
+        got = ref.match_signatures_batch_ref(*_torch(*args))
+    assert (want >= 0).any()
+    np.testing.assert_array_equal(got.numpy(), want)
 
 
 @pytest.mark.parametrize("E,T", SHAPES)

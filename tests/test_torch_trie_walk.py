@@ -135,6 +135,35 @@ def test_plain_cells_match_jax(walk_tables, emax, masked, narrow):
         assert not (want[0][kill[s]].any() or want[1][kill[s]].any())
 
 
+def test_plain_cells_out_of_range_match_jax(walk_tables):
+    """Cell indices of -1, -(n+3), n and n+7 in both columns: the CPU
+    branch of ops.trie_walk_cells takes them as JAX's gather does, so it
+    equals the walk of the cells as jnp indexing normalises them, and
+    JAX's fused walk of the same out-of-range cells."""
+    tables, dims = walk_tables
+    cells = tables[4].copy()
+    nb, ns = len(tables[0]), len(tables[5])
+    cells[:4, 0] = (-1, -(nb + 3), nb, nb + 7)
+    cells[4:8, 1] = (-1, -(ns + 3), ns, ns + 7)
+    cells[8:12] = [(nb + 7, -1), (-(nb + 3), ns), (-1, ns + 7),
+                   (nb, -(ns + 3))]
+    norm = np.stack([np.asarray(jnp.arange(nb)[cells[:, 0]]),
+                     np.asarray(jnp.arange(ns)[cells[:, 1]])], 1)
+    assert (norm != cells).any(axis=1)[:12].all()
+    kw = dict(dims, emax=1)
+    t = [torch.from_numpy(a) for a in tables]
+    got = ops.trie_walk_cells(*t[:4], torch.from_numpy(cells), *t[5:], **kw)
+    want = ops.trie_walk_cells(*t[:4], torch.from_numpy(norm.astype(
+        np.int32)), *t[5:], **kw)
+    jax_got = jax_fused(*[jnp.asarray(a) for a in tables[:4]],
+                        jnp.asarray(cells),
+                        *[jnp.asarray(a) for a in tables[5:]], **kw)
+    for g, w, j in zip(got, want, jax_got):
+        np.testing.assert_array_equal(g.numpy(), w.numpy())
+        np.testing.assert_array_equal(g.numpy(), np.asarray(j))
+    assert want[0].any()
+
+
 def test_cells_wrapper_checks_inputs(walk_tables):
     tables, dims = walk_tables
     t = [torch.from_numpy(a) for a in tables]
