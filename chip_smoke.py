@@ -35,8 +35,10 @@ line) on any failure:
    reads the tables in place by cell, on the Table 3 bank's packed
    subtrees against the first 512 queries, and on the same tables at
    emax 1 / tmax 1 and emax 16 / tmax 32, over a batch of pad cells,
-   and with 25 % of the slots forced to ``REQ_MASKED``; bit-equality,
-   then timings beside each kernel's bound;
+   with 25 % of the slots forced to ``REQ_MASKED``, and with step keys,
+   itemset slots and pattern vertices out of range
+   (``tests/gather_inputs.py``); bit-equality, then timings beside each
+   kernel's bound;
 6. the serving path: ``PatternServer(device="cuda")`` over the bank of
    phase 3's map (211 rFTSs) answers 1000 Table 3 queries (seed 1)
    under the ``flat``, ``trie`` and ``trie_fused`` layouts; the rows
@@ -49,8 +51,25 @@ line) on any failure:
    port's three kernels always by name), and a timed trie_fused run the
    device time from start to end of each fused walk;
 7. the serving launcher on ``cuda`` (``--bank-layout trie_fused``, at
-   its defaults and at ``--emax 1``);
-8. one JSON line describing every ported kernel, then the last line
+   its defaults, at ``--emax 1``, and in its streaming, replica,
+   cluster and sharded-window modes), each run checking itself;
+8. the streaming window: phase 3's DB seeds a ``StreamingBank`` of
+   window 1000 under each layout, the 1000 queries stream in as
+   arrivals in batches of 50 (``refresh_every`` 4, ``compact_threshold``
+   0.5, a closing full refresh), every refresh is held to a batch
+   re-mine of the window on the card, the layouts end on one map equal
+   to the host oracle, and the launch counts, zeroed after the seed and
+   read after the stream, equal the bank's device calls (the checks'
+   re-mines counted apart); latency percentiles and a profiled
+   refresh's device-busy share are printed;
+9. the simulated cluster: 4 hosts on the one card route (sync and
+   async) the 1000 queries under each layout, equal to the single-host
+   rows; a seeded fault schedule with one host dark answers every query
+   exactly or as a flagged superset; a 4-host sharded window replays
+   phase 8's stream and ends each refresh on its map; two read replicas
+   serve through a writer refresh, converge, and a crashed one replays
+   the recovery log;
+10. one JSON line describing every ported kernel, then the last line
    ``{"ok": true, "device": {...}}``.
 
 It needs a CUDA device and the repository around it: without either it
@@ -95,6 +114,11 @@ KERNELS = ("match_count", "containment", "trie_walk")
 # the serving phase: Table 3 queries (seed 1) against phase 3's bank
 N_QUERIES, MAX_BATCH, EMAX, N_ORACLE = 1000, 512, 4, 128
 LAYOUTS = ("flat", "trie", "trie_fused")
+# cold serving passes timed after the counted one, each layout
+SERVE_REPS = 6
+# the streaming phase: phase 3's DB as the window, the queries streamed
+# in as arrivals; the cluster phase's simulated hosts
+STREAM_BATCH, REFRESH_EVERY, COMPACT, N_HOSTS = 50, 4, 0.5, 4
 # contain_step's random (G, Ein, Tm) cases; its edge shapes are the
 # tests' EDGE_SHAPES (tests/contain_inputs.py)
 CONTAIN_RANDOM = ((1, 1, 1), (65, 4, 9), (4096, 4, 16), (4096, 16, 16))
@@ -731,6 +755,7 @@ def phase_serving_kernels(setup) -> list:
     # the random inputs of the port's contain_step tests
     sys.path.insert(0, os.path.join(ROOT, "tests"))
     from contain_inputs import EDGE_SHAPES, contain_inputs, matching_inputs
+    from gather_inputs import FIELDS, out_of_range_steps
 
     dev = torch.device("cuda")
     out = []
@@ -840,6 +865,23 @@ def phase_serving_kernels(setup) -> list:
     dead = kill[cells[:, 1].long()]
     if (acc_m & dead).any() or (ovf_m & dead).any():
         raise AssertionError("a REQ_MASKED slot came out set")
+    # step keys, itemset slots and pattern vertices out of range (-1,
+    # -(n+3), n, n+7; tests/gather_inputs.py): all four fields in turn
+    # over every third real slot, then every real slot's key at a window
+    # of one (no window opens: nothing accepted), then every slot's idx
+    oor = {}
+    for fields, every, tmax in ((tuple(FIELDS), 3, kw["tmax"]),
+                                (("key",), 1, 1), (("idx",), 1, kw["tmax"])):
+        steps, n_bad = out_of_range_steps(
+            args[5].cpu().numpy(), K=K, ni=kw["ni"], nv=kw["nv"],
+            fields=fields, every=every)
+        bad = [*args[:5], torch.from_numpy(steps).to(dev), *args[6:]]
+        what = f"out-of-range {'/'.join(fields)} (tmax {tmax})"
+        oor[what] = (n_bad, int(held(what, bad, dict(kw, tmax=tmax))[0]
+                                .sum()))
+    if oor["out-of-range key (tmax 1)"][1]:
+        raise AssertionError("a slot whose step key is out of range "
+                             "accepted")
     log(f"[trie_walk] bit-equal to the plain version in {n_cmp} "
         f"comparisons, through trie_walk_cells: the fused batch of "
         f"{MAX_BATCH} queries (N={N} cells, S={S} slots, K={K}, "
@@ -847,7 +889,10 @@ def phase_serving_kernels(setup) -> list:
         f"cells at " + ", ".join(f"{k} ({v} accepted)"
                                  for k, v in edges.items())
         + f"; {N} pad cells; {int(dead.sum())} of {dead.numel()} cell "
-        f"slots forced to REQ_MASKED ({int(acc_m.sum())} accepted)")
+        f"slots forced to REQ_MASKED ({int(acc_m.sum())} accepted); "
+        + ", ".join(f"{k}: {n} of the {args[5].shape[0]} subtrees' slot "
+                    f"rows changed, {a} accepted"
+                    for k, (n, a) in oor.items()))
     ms, host_ms = _time_ms(lambda: wops.trie_walk_cells(*args, **kw),
                            reps=100)
     plain_ms, plain_host_ms = _time_ms(lambda: _plain_walk(args, kw),
@@ -987,6 +1032,7 @@ def phase_serving(setup) -> dict:
             raise AssertionError(
                 f"{layout} rows differ from flat in "
                 f"{int((rows[layout] != rows['flat']).sum())} cells")
+    setup["rows"] = rows["flat"]
     fused_batches = stats["trie_fused"]["device_batches"]
     if not (launches["contain_step"] > 0
             and launches["contain_step"] == calls["contain_step"]):
@@ -1003,6 +1049,21 @@ def phase_serving(setup) -> dict:
         f"{launches['contain_step']} (== predicate calls), trie_walk "
         f"{launches['trie_walk']} (== fused walks, {fused_batches} fused "
         f"batches)")
+
+    # the wall of one pass moves by up to half between runs: SERVE_REPS
+    # more cold passes, the layouts taken in turn, after the counted one
+    reps = {layout: [walls[layout]] for layout in LAYOUTS}
+    for _ in range(SERVE_REPS):
+        for layout in LAYOUTS:
+            got, _, wall = _serve(bank, trie, queries, layout, emax=EMAX)
+            if not np.array_equal(got, rows["flat"]):
+                raise AssertionError(f"{layout} rows changed on a repeat")
+            reps[layout].append(wall)
+    for layout in LAYOUTS:
+        w = sorted(reps[layout])
+        walls[layout] = w[len(w) // 2]
+        log(f"[serving] {layout}: wall of {len(w)} cold passes, median "
+            f"{walls[layout]:.4f}s, min {w[0]:.4f}s, max {w[-1]:.4f}s")
 
     t0 = time.perf_counter()
     sub = queries[:N_ORACLE]
@@ -1047,18 +1108,364 @@ def phase_serving(setup) -> dict:
     return launches
 
 
+def _table3_db():
+    """The paper's Table 3 default DB (seed 0) and phase 3's sigma and
+    max_len."""
+    from repro_torch.data.synthetic import Table3Params, generate_table3_db
+
+    params = Table3Params(db_size=1000, v_avg=6, n_interstates=5)
+    return generate_table3_db(params, seed=0), 100, 6
+
+
+def _zero_counts() -> None:
+    """Every kernel's launch count and the serving path's call counts
+    set to 0."""
+    from repro_torch.kernels.containment import ops as cops
+    from repro_torch.kernels.match_count import ops as mops
+    from repro_torch.kernels.trie_walk import ops as wops
+    from repro_torch.serving import batch
+
+    cops.launches = mops.launches = wops.launches = 0
+    batch.predicate_calls = batch.fused_walks = 0
+
+
+def _counts() -> dict:
+    """(kernel launches, device calls) of each kernel since the last
+    ``_zero_counts``; match_count's calls are filled in by the caller."""
+    from repro_torch.kernels.containment import ops as cops
+    from repro_torch.kernels.match_count import ops as mops
+    from repro_torch.kernels.trie_walk import ops as wops
+    from repro_torch.serving import batch
+
+    return {"match_count": [mops.launches, None],
+            "contain_step": [cops.launches, batch.predicate_calls],
+            "trie_walk": [wops.launches, batch.fused_walks]}
+
+
+def _check_counts(what, counts, used) -> None:
+    """Each kernel launched once per device call, and at least once
+    where ``used`` names it."""
+    for name, (launches, calls) in counts.items():
+        if launches != calls or (name in used and not launches):
+            raise AssertionError(
+                f"{what}: {name} launched {launches} times for {calls} "
+                f"device calls")
+    log(f"{what}: launches == device calls: " + ", ".join(
+        f"{k} {v[0]}" for k, v in counts.items()))
+
+
+def _mining_calls(metrics) -> int:
+    """match_count's device calls that a registry has counted."""
+    return metrics.snapshot().get("mining.n_device_calls", 0)
+
+
+def _uses(layout):
+    return {"flat": ("contain_step",), "trie": ("contain_step",),
+            "trie_fused": ("trie_walk",)}[layout]
+
+
+def _spread(queries, n_hosts):
+    reqs = {h: [] for h in range(n_hosts)}
+    for i, s in enumerate(queries):
+        reqs[i % n_hosts].append(s)
+    return reqs
+
+
+def _unspread(results, n_hosts, n):
+    return [results[i % n_hosts][i // n_hosts] for i in range(n)]
+
+
+def phase_streaming(setup) -> dict:
+    """The streaming window on the card: phase 3's DB seeds a
+    ``StreamingBank`` (window = the DB), the 1000 queries stream in as
+    arrivals, and every refresh - incremental, auto-compacting, and the
+    closing full one - is held to a batch re-mine of the window; the
+    three layouts end on one map, which equals the host oracle.  The
+    launch counts are zeroed after the seed and read after the stream;
+    the checks' re-mines are counted apart."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core.reverse_search import mine_gtrace_rs
+    from repro_torch.kernels.match_count import ops as mops
+    from repro_torch.mining.driver import AcceleratedMiner
+    from repro_torch.serving.streaming import StreamingBank
+
+    db, sigma, max_len = _table3_db()
+    queries = setup["queries"]
+    batches = [queries[i:i + STREAM_BATCH]
+               for i in range(0, len(queries), STREAM_BATCH)]
+    finals, launches, record = {}, {}, None
+    for layout in LAYOUTS:
+        t0 = time.perf_counter()
+        sb = StreamingBank.from_db(
+            db, minsup=sigma, window=len(db), max_len=max_len,
+            bank_layout=layout, refresh_every=REFRESH_EVERY,
+            compact_threshold=COMPACT, device="cuda", emax=EMAX,
+            max_batch=MAX_BATCH)
+        seed_s = time.perf_counter() - t0
+        if sb.bank.n_patterns != setup["bank"].n_patterns:
+            raise AssertionError(f"seeded {sb.bank.n_patterns} rFTSs, "
+                                 f"expected {setup['bank'].n_patterns}")
+        check_launches = 0
+
+        def held(what):
+            nonlocal check_launches
+            before = mops.launches
+            want = AcceleratedMiner(sb.window_seqs, device="cuda").mine_rs(
+                sigma, max_len=max_len).patterns
+            check_launches += mops.launches - before
+            got = sb.frequent()
+            if got != want:
+                raise AssertionError(
+                    f"streaming {layout} {what}: {len(got)} frequent, a "
+                    f"batch re-mine of the window {len(want)}; the maps "
+                    f"differ")
+            return got
+
+        refreshes = []
+        _zero_counts()
+        t0 = time.perf_counter()
+        for i, b in enumerate(batches):
+            if sb.observe(b).refreshed:
+                refreshes.append((i, held(f"refresh after batch {i}")))
+        stream_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            final = sb.refresh(full=True)
+            torch.cuda.synchronize()
+        full_s = time.perf_counter() - t0
+        refreshes.append((len(batches), held("final full refresh")))
+        counts = _counts()
+        counts["match_count"][0] -= check_launches
+        counts["match_count"][1] = _mining_calls(sb.metrics)
+        _check_counts(f"[streaming {layout}]", counts,
+                      ("match_count",) + _uses(layout))
+        launches[layout] = {k: v[0] for k, v in counts.items()}
+        st = dict(sb.stats)
+        h_obs = sb.metrics.bucket_histogram("streaming.bank.observe_seconds")
+        h_ref = sb.metrics.bucket_histogram("streaming.bank.refresh_seconds")
+        log(f"[streaming {layout}] seeded {sb.window}-sequence window in "
+            f"{seed_s:.3f}s; {len(queries)} arrivals in {len(batches)} "
+            f"batches of {STREAM_BATCH} in {stream_s:.3f}s "
+            f"({len(queries) / stream_s:.1f} arrivals/s); refreshes after "
+            f"batches {[i for i, _ in refreshes[:-1]]}, each == batch "
+            f"re-mine; observe_seconds p50 {h_obs.quantile(0.5):.6g} p99 "
+            f"{h_obs.quantile(0.99):.6g} (n {h_obs.count}); "
+            f"refresh_seconds p50 {h_ref.quantile(0.5):.6g} p99 "
+            f"{h_ref.quantile(0.99):.6g} (n {h_ref.count}); incremental "
+            f"refreshes {st['refreshes']}, full {st['full_refreshes']} "
+            f"(auto compactions {st['auto_compactions']}), tombstoned "
+            f"{st['tombstoned']}, recovered {st['recovered']}, added "
+            f"{st['added']}, frontier scans {st['frontier_scans']}, "
+            f"skipped {st['frontier_scans_skipped']}; {len(final)} "
+            f"frequent at the end")
+        _log_device_times(f"[profile streaming {layout} full refresh]",
+                          prof, full_s, full_s)
+        finals[layout] = final
+        if layout == "flat":
+            record = refreshes
+    for layout in LAYOUTS[1:]:
+        if finals[layout] != finals["flat"]:
+            raise AssertionError(f"streaming {layout} ended on another map "
+                                 f"than flat")
+    t0 = time.perf_counter()
+    oracle = mine_gtrace_rs(sb.window_seqs, sigma,
+                            max_len=max_len).patterns
+    if finals["flat"] != oracle:
+        raise AssertionError(f"streaming ended on {len(finals['flat'])} "
+                             f"rFTSs, the host oracle finds {len(oracle)}")
+    log(f"[streaming] flat, trie, trie_fused end on one map of "
+        f"{len(oracle)} rFTSs == host oracle over the final window "
+        f"({time.perf_counter() - t0:.2f}s)")
+    return {"record": record, "batches": batches, "launches": launches}
+
+
+def phase_cluster(setup, stream) -> dict:
+    """The simulated cluster on the card: 4 hosts on the one card serve
+    the bank (sync ``route`` and async submit/collect) under the three
+    layouts, equal to the single-host rows; a seeded fault schedule with
+    one host dark answers every query soundly; the sharded window
+    replays phase 8's stream and ends each refresh on its map; two read
+    replicas serve through a writer refresh, converge, and a crashed one
+    replays the recovery log."""
+    import numpy as np
+    import torch
+
+    from repro_torch.serving.cluster import (ReplicaGroup, ServingCluster,
+                                             ShardedStreamingBank)
+    from repro_torch.serving.faults import FaultInjector, RetryPolicy
+    from repro_torch.serving.streaming import StreamingBank
+
+    bank, queries, want = setup["bank"], setup["queries"], setup["rows"]
+    n, H = len(queries), N_HOSTS
+    launches = {}
+    for layout in LAYOUTS:
+        _zero_counts()
+        cl = ServingCluster(bank, H, bank_layout=layout, device="cuda",
+                            emax=EMAX, max_batch=MAX_BATCH)
+        t0 = time.perf_counter()
+        got = _unspread(cl.query_multi(_spread(queries, H)), H, n)
+        torch.cuda.synchronize()
+        sync_s = time.perf_counter() - t0
+        ac = ServingCluster(bank, H, bank_layout=layout, device="cuda",
+                            emax=EMAX, max_batch=MAX_BATCH,
+                            flush_batch=100)
+        t0 = time.perf_counter()
+        chunks = [queries[i:i + 250] for i in range(0, n, 250)]
+        tickets = [ac.submit(_spread(c, H)) for c in chunks]
+        agot = [r for c, t in zip(chunks, tickets)
+                for r in _unspread(ac.collect(t), H, len(c))]
+        torch.cuda.synchronize()
+        async_s = time.perf_counter() - t0
+        for what, res in (("route", got), ("submit/collect", agot)):
+            rows = np.stack([r.contained for r in res])
+            if not (all(r.exact for r in res)
+                    and np.array_equal(rows, want)):
+                raise AssertionError(
+                    f"cluster {layout} {what}: rows differ from the "
+                    f"single-host server in {int((rows != want).sum())} "
+                    f"cells")
+        counts = _counts()
+        counts["match_count"][1] = 0
+        _check_counts(f"[cluster {layout}]", counts, _uses(layout))
+        launches[layout] = {k: v[0] for k, v in counts.items()}
+        log(f"[cluster {layout}] {H} hosts on one card, shards "
+            f"{[len(h.rows) for h in cl.hosts]}: route {n} queries in "
+            f"{sync_s:.3f}s ({n / sync_s:.1f} qps), submit/collect in "
+            f"{async_s:.3f}s ({n / async_s:.1f} qps), rows == single "
+            f"host; router {dict(ac.router.stats)}")
+
+    # host 1 dark from 2 s to 5 s on the fake clock (the drains move it
+    # 0.6 s each), transient errors and delays throughout
+    now = [0.0]
+    inj = FaultInjector(0, error_rate=0.05, delay_rate=0.1, delay=0.01,
+                        blackouts=[(1, 2.0, 5.0)], clock=lambda: now[0])
+    cl = ServingCluster(
+        bank, H, device="cuda", emax=EMAX, max_batch=MAX_BATCH,
+        injector=inj, clock=lambda: now[0], max_wait=0.5, flush_batch=64,
+        fault_policy=RetryPolicy(retries=2, backoff_base=0.001,
+                                 breaker_threshold=3, breaker_cooldown=1.5))
+    _zero_counts()
+    n_exact = n_flagged = 0
+    for i in range(0, n, 100):
+        chunk = queries[i:i + 100]
+        ticket = cl.submit(_spread(chunk, H))
+        now[0] += 0.6
+        cl.poll()
+        res = _unspread(cl.collect(ticket, timeout=1.0), H, len(chunk))
+        for j, r in enumerate(res):
+            truth = want[i + j]
+            if r.exact:
+                if not np.array_equal(r.contained, truth):
+                    raise AssertionError(f"chaos: query {i + j} exact but "
+                                         f"wrong")
+                n_exact += 1
+            else:
+                if (truth & ~r.contained).any():
+                    raise AssertionError(f"chaos: query {i + j} flagged "
+                                         f"but not a superset")
+                n_flagged += 1
+    if n_exact + n_flagged != n or cl.router._tickets:
+        raise AssertionError(f"chaos: {n_exact + n_flagged} answers for "
+                             f"{n} queries")
+    if not (n_exact and n_flagged):
+        raise AssertionError(f"chaos: {n_exact} exact and {n_flagged} "
+                             f"flagged answers; the schedule missed a path")
+    counts = _counts()
+    counts["match_count"][1] = 0
+    _check_counts("[cluster chaos]", counts, _uses("flat"))
+    log(f"[cluster chaos] host 1 dark from 2 s to 5 s, 5 % transient "
+        f"errors, 10 % delays: "
+        f"{n} queries, {n_exact} exact == single host, {n_flagged} flagged "
+        f"supersets, none lost; faults {dict(cl.router.faults)}")
+
+    # the sharded window replays phase 8's stream, refreshing where the
+    # flat StreamingBank did
+    db, sigma, max_len = _table3_db()
+    t0 = time.perf_counter()
+    sh = ShardedStreamingBank.from_db(
+        db, minsup=sigma, n_hosts=H, window=len(db), max_len=max_len,
+        device="cuda", emax=EMAX, max_batch=MAX_BATCH)
+    points = dict(stream["record"])
+    _zero_counts()
+    calls0 = _mining_calls(sh.metrics)
+    for i, b in enumerate(stream["batches"]):
+        sh.observe(b)
+        if i in points and sh.refresh() != points[i]:
+            raise AssertionError(f"sharded window: the refresh after batch "
+                                 f"{i} differs from the StreamingBank's")
+    if sh.refresh(full=True) != points[len(stream["batches"])]:
+        raise AssertionError("sharded window: the final full refresh "
+                             "differs from the StreamingBank's")
+    counts = _counts()
+    counts["match_count"][1] = _mining_calls(sh.metrics) - calls0
+    _check_counts("[cluster sharded window]", counts,
+                  ("match_count",) + _uses(sh.bank_layout))
+    log(f"[cluster sharded window] {H} ring slices of "
+        f"{len(db) // H}: {len(points)} refreshes, each on the "
+        f"StreamingBank's map; {time.perf_counter() - t0:.3f}s; stats "
+        f"{dict(sh.stats)}")
+
+    # a writer and two read replicas
+    writer = StreamingBank.from_db(
+        db, minsup=sigma, window=len(db), max_len=max_len,
+        bank_layout="trie_fused", device="cuda", emax=EMAX,
+        max_batch=MAX_BATCH)
+    group = ReplicaGroup(writer, 2)
+    sample = queries[:N_ORACLE]
+
+    def rows_of(rid):
+        return np.stack([r.contained for r in
+                         group.query(sample, replica=rid)])
+
+    _zero_counts()
+    calls0 = _mining_calls(writer.metrics)
+    before = rows_of(0)
+    writer.observe(stream["batches"][0])
+    group.crash(1)
+    for b in stream["batches"][1:REFRESH_EVERY]:
+        writer.observe(b)
+    writer.refresh()
+    lag = group.lag(0)
+    if not (lag > 0 and np.array_equal(rows_of(0), before)):
+        raise AssertionError("replica 0 did not serve its old bank "
+                             "through the writer's refresh")
+    group.sync(0)
+    truth = writer.server.exact_rows(sample)
+    replayed = group.restart(1)
+    for rid in (0, 1):
+        if not np.array_equal(rows_of(rid), truth):
+            raise AssertionError(f"replica {rid} rows differ from the "
+                                 f"writer's")
+    if replayed <= 0:
+        raise AssertionError("replica 1 caught up without a replay")
+    counts = _counts()
+    counts["match_count"][1] = _mining_calls(writer.metrics) - calls0
+    _check_counts("[cluster replicas]", counts,
+                  ("match_count",) + _uses(writer.bank_layout))
+    log(f"[cluster replicas] 2 replicas: replica 0 served its old bank "
+        f"through the writer's refresh ({lag} deltas behind), then "
+        f"converged; replica 1 crashed, replayed {replayed} deltas of the "
+        f"recovery log, verified, rows == writer on {len(sample)} queries")
+    return launches
+
+
 def phase_serve_launcher() -> None:
     env = dict(os.environ)
     env["PYTHONPATH"] = SRC + (os.pathsep + env["PYTHONPATH"]
                                if env.get("PYTHONPATH") else "")
-    for extra in ([], ["--emax", "1"]):
+    for extra in ([], ["--emax", "1"], ["--window", "150"],
+                  ["--window", "150", "--replicas", "2"], ["--hosts", "4"],
+                  ["--window", "150", "--hosts", "2"]):
         t0 = time.perf_counter()
         proc = subprocess.run(
             [sys.executable, "-m", "repro_torch.launch.serve", "--device",
              "cuda", "--bank-layout", "trie_fused", *extra],
             env=env, cwd=ROOT, capture_output=True, text=True, timeout=600)
         for line in proc.stdout.splitlines():
-            log(f"  {line}")
+            if not line.startswith("[serve] batch "):
+                log(f"  {line}")
         if proc.returncode != 0 or "(verified)" not in proc.stdout:
             raise AssertionError(
                 f"serve launcher {extra} failed ({proc.returncode}):\n"
@@ -1116,6 +1523,8 @@ def main() -> int:
     kernels += phase_serving_kernels(setup)
     launches.update(phase_serving(setup))
     phase_serve_launcher()
+    stream = phase_streaming(setup)
+    phase_cluster(setup, stream)
 
     for k in kernels:
         k["launches"] = launches[k["name"]]

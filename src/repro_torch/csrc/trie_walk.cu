@@ -49,8 +49,13 @@
 //    the prologue's zeros, so a child of it seeds no row and inherits
 //    no overflow, as in the plain version.  A slot whose seed has no
 //    valid row only passes the overflow on.  Neither reads its window
-//    or evaluates a predicate.  Rows past n_sel are never read again,
-//    so they are not written.
+//    or evaluates a predicate, nor does a slot where no pair can match
+//    (no valid token in its window, or cur_phi read as INT_MIN on a slot
+//    that stays in its itemset): the prologue marks it with start -1 and
+//    normalises the step key and idx once a slot, so the pair loop reads
+//    what it read before the out-of-range rules (measured: no slower,
+//    PERF.md).  Rows past n_sel are never read again, so they are not
+//    written.
 //  - The slot's E*Tm predicate pairs map onto the 32 lanes (looping past
 //    32); candidate c = (e*Tm + t)*2 + o.  Compaction by ballot: per
 //    group of 32 pairs, __ballot_sync of the two orientation bits, and
@@ -67,7 +72,12 @@
 // Pad slots (step_valid 0, parent -1, req = int32 max) fail the
 // prescreen and come out 0/0 with no special case; pad cells (the zero
 // rows a batch is padded with) walk cell (0, 0).  Cell indices wrap
-// once when negative and clamp into range, as JAX's gather does.  The
+// once when negative and clamp into range, as JAX's gather does; the
+// step key and the itemset slot idx are read as jnp.take_along_axis
+// reads them (wrapped once when negative, INT_MIN past that), so a key
+// out of range opens no window and no step row reads out of bounds
+// (start, count and order are the inverted index's: starts in [0, T],
+// order a permutation of [0, T)).  The
 // launcher returns the CUDA error when a cell's buffers exceed what one
 // block may have; the wrapper raises on it.
 #include <cuda_runtime.h>
@@ -93,7 +103,7 @@ struct Sizes {
 // in 64 bits: the launcher refuses a slice too large for a block before
 // the int offsets are used
 struct Layout {
-  int steps, parent, poss, st, ct, nvalid, ovf, acc, ovft, root_phi,
+  int steps, parent, poss, st, ct, cc, nvalid, ovf, acc, ovft, root_phi,
       root_psi, phi, psi, tok_w, sel;
   long long total;
 };
@@ -112,6 +122,7 @@ Layout make_layout(const Sizes& z) {
   l.poss = take(S);
   l.st = take(S);
   l.ct = take(S);
+  l.cc = take(S);
   l.nvalid = take(S);
   l.ovf = take(S);
   l.acc = take(S);
@@ -156,6 +167,7 @@ trie_walk_kernel(const int* __restrict__ tokens, const int* __restrict__ order,
   int* const s_poss = w + L.poss;
   int* const s_st = w + L.st;
   int* const s_ct = w + L.ct;
+  int* const s_cc = w + L.cc;
   int* const s_nvalid = w + L.nvalid;
   int* const s_ovf = w + L.ovf;
   int* const s_acc = w + L.acc;
@@ -183,10 +195,33 @@ trie_walk_kernel(const int* __restrict__ tokens, const int* __restrict__ order,
   for (int q = lane; q < S * contain::kSrowFields; q += kWarp)
     s_steps[q] = __ldg(stp + q);
   for (int n = lane; n < S; n += kWarp) {
-    const int key = __ldg(stp + n * contain::kSrowFields + 7);
+    const int* const row = stp + n * contain::kSrowFields;
+    // the step key and itemset slot as JAX's take_along_axis takes them:
+    // wrapped once when in [-K, 0) / [-ni, 0); any other key reads INT_MIN
+    // as start and count (no window, no window overflow), any other idx
+    // INT_MIN as cur_phi
+    int key = __ldg(row + 7);
+    if (key < 0) key += K;
+    const bool kin = key >= 0 && key < K;
+    const int st = kin ? __ldg(st_row + key) : INT_MIN;
+    const int ct = kin ? __ldg(ct_row + key) : INT_MIN;
+    const int idx = __ldg(row + 5);
+    const int ci = idx < 0 ? idx + ni : idx;
+    const bool cin = ci >= 0 && ci < ni;
+    // a slot whose window holds no valid token (ct <= 0, as for a key
+    // read as INT_MIN) matches nothing, nor does one that stays in its
+    // itemset with cur_phi INT_MIN (j == INT_MIN holds for no valid
+    // token): the plain version's predicate is 0 on every pair, as on a
+    // padding row, so such a slot gets start -1 and neither reads its
+    // window nor joins.  A window with valid tokens starts in [0, T) (the
+    // inverted index's starts do); a start outside it is not read either.
+    const bool joins = ct > 0 && st >= 0 && st < T &&
+                       (__ldg(row + 4) > 0 || cin);
     s_parent[n] = __ldg(par + n);
-    s_st[n] = __ldg(st_row + key);
-    s_ct[n] = __ldg(ct_row + key);
+    s_st[n] = joins ? st : -1;
+    s_ct[n] = ct;
+    // cur_phi's column; a slot that opens an itemset never uses it
+    s_cc[n] = cin ? ci : 0;
     // what a slot that never joins leaves: no row, no overflow
     s_nvalid[n] = 0;
     s_ovf[n] = 0;
@@ -257,8 +292,9 @@ trie_walk_kernel(const int* __restrict__ tokens, const int* __restrict__ order,
     const bool w_ovf = ct > Tm;
     const int* const seed_phi = isroot ? root_phi : phi_buf + pcl * E * ni;
     const int* const seed_psi = isroot ? root_psi : psi_buf + pcl * E * nv;
-    if (sval > 0) {
-      // ---- the step's token window through the inverted index
+    if (sval > 0 && st >= 0) {  // st is -1 where no pair can match
+      // ---- the step's token window through the inverted index (order is
+      // a permutation of [0, T))
       for (int m = lane; m < Tm; m += kWarp) {
         const int wpos = st + m < T - 1 ? st + m : T - 1;
         const int* const src =
@@ -269,8 +305,10 @@ trie_walk_kernel(const int* __restrict__ tokens, const int* __restrict__ order,
         dst[5] = m < ct ? __ldg(src + 5) : 0;
       }
       __syncwarp();
-      // ---- predicate over (valid row, token) pairs, ballot compaction
-      const int pi = idx - 1 < 0 ? 0 : (idx - 1 > ni - 1 ? ni - 1 : idx - 1);
+      // ---- predicate over (valid row, token) pairs, ballot compaction;
+      // prev_phi's index is clipped and used only when idx > 0
+      const int pi = idx > ni ? ni - 1 : (idx > 0 ? idx - 1 : 0);
+      const int cc = s_cc[n];
       const int npairs = seed_n * Tm;
       int cnt = 0;
       for (int base = 0; base < npairs && cnt <= E; base += kWarp) {
@@ -289,7 +327,7 @@ trie_walk_kernel(const int* __restrict__ tokens, const int* __restrict__ order,
           srow[0] = ty; srow[1] = pu1; srow[2] = pu2; srow[3] = lab;
           srow[4] = snew;
           srow[5] = idx > 0 ? ph[pi] : -1;
-          srow[6] = ph[idx];
+          srow[6] = ph[cc];
           srow[7] = 1;  // e < seed_n and sval > 0
           bits = contain::contain_pred(tok_w + t * 6, seed_psi + e * nv,
                                        nv, srow);
@@ -332,6 +370,9 @@ trie_walk_kernel(const int* __restrict__ tokens, const int* __restrict__ order,
         const int u1 = tw[1], u2 = tw[2];
         const int v0 = seed_psi[sel[2 * r] * nv + c];
         int v = v0;
+        // the plain version's fresh tests read psi at pu1 / pu2 (INT_MIN,
+        // so fresh, out of range), but its update masks by c == pu, so
+        // only an in-range pu's own column, v0, decides
         if (c == pu1 && v0 < 0) v = is_v ? u1 : ((to & 1) ? u2 : u1);
         if (c == pu2 && !is_v && v0 < 0) v = (to & 1) ? u1 : u2;
         out_psi[q] = v;

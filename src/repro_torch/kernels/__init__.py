@@ -35,12 +35,29 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
 
 
 def gather_index(idx: torch.Tensor, n: int) -> torch.Tensor:
-    """``idx`` as JAX's gather takes it into an axis of ``n`` entries:
-    wrapped once when negative, then clamped into ``[0, n - 1]``.  An
-    int64 tensor, ready to index with; the kernels read their indices
-    the same way."""
+    """``idx`` as JAX's plain indexing ``x[i, j]`` takes it into an axis
+    of ``n`` entries: wrapped once when negative, then clamped into
+    ``[0, n - 1]``.  An int64 tensor, ready to index with; the kernels
+    read their indices the same way."""
     idx = idx.long()
     return torch.where(idx < 0, idx + n, idx).clamp(0, max(n - 1, 0))
+
+
+# what JAX's take_along_axis reads for an int32 index out of range
+INT32_MIN = -(2 ** 31)
+
+
+def take_fill(x: torch.Tensor, dim: int, idx: torch.Tensor) -> torch.Tensor:
+    """``torch.gather(x, dim, idx)`` of an int32 ``x`` with the index
+    taken as ``jnp.take_along_axis`` takes it into an axis of ``n``
+    entries: wrapped once when in ``[-n, 0)``; any other index out of
+    range reads ``INT32_MIN``."""
+    n = x.shape[dim]
+    idx = idx.long()
+    idx = torch.where(idx < 0, idx + n, idx)
+    ok = (idx >= 0) & (idx < n)
+    got = torch.gather(x, dim, idx.clamp(0, max(n - 1, 0)))
+    return torch.where(ok, got, INT32_MIN)
 
 
 def check_int32(name: str, x, ndim: int, device: torch.device) -> None:

@@ -32,6 +32,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .. import take_fill
 from ..containment.ref import contain_step_core
 
 # local mirrors of the serving-layer constants (the kernels layer stays
@@ -69,19 +70,23 @@ def _walk_step(tok_c, order_c, start_c, count_c, step_k, phi, psi,
         step_k[:, c] for c in range(8)
     )
 
+    # every lookup below is JAX's take_along_axis: an index in [-n, 0)
+    # wraps, any other out of range reads INT32_MIN (``take_fill``), so a
+    # step key out of range opens no window and a filled window token is
+    # invalid
     # ---- per-cell token window for this step's (type,label) bucket
-    st_sel = torch.gather(start_c, 1, key_s.long()[:, None])[:, 0]
-    ct_sel = torch.gather(count_c, 1, key_s.long()[:, None])[:, 0]
+    st_sel = take_fill(start_c, 1, key_s[:, None])[:, 0]
+    ct_sel = take_fill(count_c, 1, key_s[:, None])[:, 0]
     wpos = torch.clamp(st_sel[:, None] + m_ids[None, :], max=T - 1)
     wvalid = m_ids[None, :] < ct_sel[:, None]
-    tpos = torch.gather(order_c, 1, wpos.long())              # [N, Tm]
-    tok_w = gather_rows(tok_c, tpos)                          # [N, Tm, 6]
+    tpos = take_fill(order_c, 1, wpos)                        # [N, Tm]
+    tok_w = take_fill(tok_c, 1, tpos[..., None].expand(N, Tm, 6))
     tok_w[..., 5] = torch.where(wvalid, tok_w[..., 5], 0)
 
     # ---- per-row step table for the predicate
-    idx_b = idx_s.long()[:, None, None].expand(N, Ein, 1)
-    cur_phi = torch.gather(phi, 2, idx_b)[..., 0]
-    prev_b = torch.clamp(idx_b - 1, 0, NI - 1)
+    idx_b = idx_s[:, None, None].expand(N, Ein, 1)
+    cur_phi = take_fill(phi, 2, idx_b)[..., 0]
+    prev_b = torch.clamp(idx_b.long() - 1, 0, NI - 1)
     prev_phi = torch.gather(phi, 2, prev_b)[..., 0]
     prev_phi = torch.where(idx_s[:, None] > 0, prev_phi, -1)
     row_valid = valid & (sval_s[:, None] > 0)
@@ -118,6 +123,7 @@ def _walk_step(tok_c, order_c, start_c, count_c, step_k, phi, psi,
     t_w = (sel // 2) % Tm
     var = sel % 2
 
+    # e_old < Ein and t_w < Tm by construction: these gathers are in range
     phi_src = gather_rows(phi, e_old)
     psi_src = gather_rows(psi, e_old)
 
@@ -134,10 +140,10 @@ def _walk_step(tok_c, order_c, start_c, count_c, step_k, phi, psi,
     a_g = torch.where(var == 0, u1_g, u2_g)
     b_g = torch.where(var == 0, u2_g, u1_g)
     is_v = (ty_s <= 2)[:, None]
-    pu1_b = pu1_s.long()[:, None, None].expand(N, E, 1)
-    pu2_b = pu2_s.long()[:, None, None].expand(N, E, 1)
-    fresh1 = torch.gather(psi_src, 2, pu1_b)[..., 0] < 0
-    fresh2 = torch.gather(psi_src, 2, pu2_b)[..., 0] < 0
+    pu1_b = pu1_s[:, None, None].expand(N, E, 1)
+    pu2_b = pu2_s[:, None, None].expand(N, E, 1)
+    fresh1 = take_fill(psi_src, 2, pu1_b)[..., 0] < 0
+    fresh2 = take_fill(psi_src, 2, pu2_b)[..., 0] < 0
     onehot1 = nv_ids[None, None, :] == pu1_s[:, None, None]
     onehot2 = nv_ids[None, None, :] == pu2_s[:, None, None]
     assign1 = torch.where(is_v, u1_g, a_g)

@@ -53,9 +53,12 @@ a CUDA device each is one kernel launch.
 """
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
+from ..kernels import INT32_MIN
 from ..kernels.containment.ops import contain_step
 from ..kernels.trie_walk import ref as _fused_ref
 from ..kernels.trie_walk.ref import gather_rows
@@ -158,9 +161,47 @@ def index_and_prescreen(tokens, req, *, n_label_keys: int):
     return order, start, count, possible
 
 
+@functools.lru_cache(maxsize=None)
+def _range_bounds(wrap, hi, device):
+    """``_step_ranges``' bounds on the device, once for each set of axis
+    lengths: what a negative field wraps by, and its lower and upper
+    clamps."""
+    return (torch.tensor(wrap, dtype=_I32, device=device),
+            torch.zeros(len(hi), dtype=_I32, device=device),
+            torch.tensor(hi, dtype=_I32, device=device))
+
+
+def _step_ranges(cell_b, step_k, *, n_seq, n_keys, ni, nv):
+    """The indices of a join step as JAX reads them, worked out on the
+    index fields alone: the sequence ``cell_b`` and the step key are its
+    plain indexing ``x[i, j]`` into ``n_seq`` sequences and ``n_keys``
+    keys (out of range they wrap once, then clamp); the itemset slot
+    ``idx`` and the vertices ``pu1``/``pu2`` are its take_along_axis into
+    ``ni`` and ``nv`` entries (wrapped once when in ``[-n, 0)``, any
+    other index reads INT32_MIN); ``prev_phi``'s slot ``idx - 1`` is
+    clipped into ``[0, ni)``.  ``step_k`` is [N, F] or [N, L, F] for [N]
+    cells.  Returns ``(cb, key, idx, idx_ok, pu, pu_ok, prev)``: the
+    indices clamped into range (int64) beside the in-range masks of the
+    filled ones; ``pu`` and ``pu_ok`` are [..., 2]."""
+    lead = step_k.shape[:-1]
+    cell = cell_b.reshape(cell_b.shape[0], *(1,) * len(lead))
+    f = torch.cat([step_k[..., 1:3], step_k[..., 5:6], step_k[..., 7:8],
+                   cell.expand(*lead, 1).to(_I32), step_k[..., 5:6] - 1],
+                  -1)
+    top = [max(n - 1, 0) for n in (nv, nv, ni, n_keys, n_seq, ni)]
+    wrap, lo, hi = _range_bounds((nv, nv, ni, n_keys, n_seq, 0),
+                                 tuple(top), f.device)
+    f = torch.where(f < 0, f + wrap, f)
+    c = torch.clamp(f, lo, hi)
+    ok = c == f
+    c = c.long()
+    return (c[..., 4], c[..., 3], c[..., 2], ok[..., 2], c[..., 0:2],
+            ok[..., 0:2], c[..., 5])
+
+
 def _step_once(tokens, order, start, count, cell_b, step_k, phi, psi,
                valid, *, emax, tmax, uniform, compact,
-               count_frontier_ovf=False):
+               count_frontier_ovf=False, ranges=None):
     """One embedding-join step for N cells: evaluate the match predicate
     for every (frontier row x window token x orientation) candidate of
     step row ``step_k[i]`` against sequence ``cell_b[i]``, then compact
@@ -174,6 +215,8 @@ def _step_once(tokens, order, start, count, cell_b, step_k, phi, psi,
     (terminal steps) skips compaction and returns ``(accepted,
     step_ovf)``, where ``count_frontier_ovf`` folds in ``#accepted >
     emax`` (the compacted path's frontier flag) or leaves it out.
+    ``ranges`` is ``_step_ranges`` of these cells and step rows where the
+    caller has worked it out already.
     """
     global predicate_calls
     T = tokens.shape[1]
@@ -189,11 +232,16 @@ def _step_once(tokens, order, start, count, cell_b, step_k, phi, psi,
     ty_s, pu1_s, pu2_s, lab_s, new_s, idx_s, sval_s, key_s = (
         step_k[:, c] for c in range(8)
     )
-    cb = cell_b.long()
+    if ranges is None:
+        ranges = _step_ranges(cell_b, step_k, n_seq=start.shape[0],
+                              n_keys=start.shape[1], ni=NI, nv=NV)
+    cb, key, idx_c, idx_ok, pu_c, pu_ok, prev_b = ranges
 
-    # ---- per-cell token window for this step's (type,label) bucket
-    st_sel = start[cb, key_s.long()]   # [N]
-    ct_sel = count[cb, key_s.long()]
+    # ---- per-cell token window for this step's (type,label) bucket;
+    # start and order come from build_token_index, so the window reads
+    # are in range
+    st_sel = start[cb, key]   # [N]
+    ct_sel = count[cb, key]
     wpos = torch.clamp(st_sel[:, None] + m_ids[None, :], max=T - 1)
     wvalid = m_ids[None, :] < ct_sel[:, None]
     tpos = order[cb[:, None], wpos.long()]     # [N, Tm]
@@ -201,11 +249,10 @@ def _step_once(tokens, order, start, count, cell_b, step_k, phi, psi,
     tok_w[..., 5] = torch.where(wvalid, tok_w[..., 5], 0)
 
     # ---- per-row step table for the predicate
-    idx_b = idx_s.long()[:, None, None].expand(N, Ein, 1)
-    cur_phi = torch.gather(phi, 2, idx_b)[..., 0]
-    prev_b = torch.clamp(idx_b - 1, 0, NI - 1)
-    prev_phi = torch.gather(phi, 2, prev_b)[..., 0]
-    prev_phi = torch.where(idx_s[:, None] > 0, prev_phi, -1)
+    cur_phi = torch.gather(phi, 2, idx_c[:, None, None].expand(N, Ein, 1))
+    cur_phi = torch.where(idx_ok[:, None], cur_phi[..., 0], INT32_MIN)
+    prev_phi = torch.gather(phi, 2, prev_b[:, None, None].expand(N, Ein, 1))
+    prev_phi = torch.where(idx_s[:, None] > 0, prev_phi[..., 0], -1)
     if uniform:
         row_valid = valid  # every step row is a real step
     else:
@@ -257,6 +304,7 @@ def _step_once(tokens, order, start, count, cell_b, step_k, phi, psi,
     t_w = (sel // 2) % Tm
     var = sel % 2
 
+    # e_old < Ein and t_w < Tm by construction: these gathers are in range
     phi_src = gather_rows(phi, e_old)
     psi_src = gather_rows(psi, e_old)
 
@@ -275,10 +323,11 @@ def _step_once(tokens, order, start, count, cell_b, step_k, phi, psi,
     a_g = torch.where(var == 0, u1_g, u2_g)
     b_g = torch.where(var == 0, u2_g, u1_g)
     is_v = (ty_s <= 2)[:, None]
-    pu1_b = pu1_s.long()[:, None, None].expand(N, E, 1)
-    pu2_b = pu2_s.long()[:, None, None].expand(N, E, 1)
-    fresh1 = torch.gather(psi_src, 2, pu1_b)[..., 0] < 0
-    fresh2 = torch.gather(psi_src, 2, pu2_b)[..., 0] < 0
+    fresh = torch.where(
+        pu_ok[:, None, :],
+        torch.gather(psi_src, 2, pu_c[:, None, :].expand(N, E, 2)),
+        INT32_MIN) < 0
+    fresh1, fresh2 = fresh[..., 0], fresh[..., 1]
     onehot1 = nv_ids[None, None, :] == pu1_s[:, None, None]
     onehot2 = nv_ids[None, None, :] == pu2_s[:, None, None]
     assign1 = torch.where(is_v, u1_g, a_g)
@@ -315,22 +364,26 @@ def _join(tokens, order, start, count, cell_b, cell_steps, *,
     # initial frontier is one row; compaction widens it to E rows
     phi, psi, valid = _root_frontier(N, NI, nv, tokens.device)
     overflow = torch.zeros((N,), dtype=torch.bool, device=tokens.device)
+    # the range handling of every step at once
+    ranges = _step_ranges(cell_b, cell_steps, n_seq=start.shape[0],
+                          n_keys=start.shape[1], ni=NI, nv=nv)
 
     for k in range(L):
         step_k = cell_steps[:, k]
+        rk = tuple(r[:, k] for r in ranges)
         if uniform_length and k == L - 1:
             # every cell ends at step L-1: containment just needs "any
             # candidate accepted", so compaction is skipped entirely
             accepted, window_ovf = _step_once(
                 tokens, order, start, count, cell_b, step_k,
                 phi, psi, valid, emax=emax, tmax=tmax,
-                uniform=True, compact=False,
+                uniform=True, compact=False, ranges=rk,
             )
             return accepted, overflow | window_ovf
         phi_new, psi_new, new_valid, ovf_step = _step_once(
             tokens, order, start, count, cell_b, step_k,
             phi, psi, valid, emax=emax, tmax=tmax,
-            uniform=uniform_length, compact=True,
+            uniform=uniform_length, compact=True, ranges=rk,
         )
         if uniform_length:
             phi, psi, valid = phi_new, psi_new, new_valid
@@ -409,12 +462,15 @@ def trie_level_advance_ref(
             count_frontier_ovf=count_frontier_ovf,
         )
         return accepted, seed_ovf | step_ovf
+    ranges = _step_ranges(cell_b, cell_step, n_seq=start.shape[0],
+                          n_keys=start.shape[1], ni=seed_phi.shape[2],
+                          nv=seed_psi.shape[2])
     phi, psi, valid, ovf_step = _step_once(
         tokens, order, start, count, cell_b, cell_step,
         seed_phi, seed_psi, seed_valid, emax=emax, tmax=tmax,
-        uniform=False, compact=True,
+        uniform=False, compact=True, ranges=ranges,
     )
-    ct_sel = count[cell_b.long(), cell_step[:, 7].long()]
+    ct_sel = count[ranges[0], ranges[1]]
     window_ovf = (ct_sel > tmax) & seed_valid.any(-1)
     return (phi, psi, valid, valid.any(-1), seed_ovf | ovf_step,
             seed_ovf | window_ovf)

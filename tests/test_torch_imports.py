@@ -25,8 +25,11 @@ def test_import_leaves_jax_and_repro_unloaded():
     code = (
         "import sys\n"
         "import repro_torch, repro_torch.mining.driver, "
-        "repro_torch.launch.mine, repro_torch.serving, "
-        "repro_torch.serving.batch, repro_torch.launch.serve\n"
+        "repro_torch.mining.incremental, repro_torch.launch.mine, "
+        "repro_torch.serving, repro_torch.serving.batch, "
+        "repro_torch.serving.streaming, repro_torch.serving.faults, "
+        "repro_torch.serving.router, repro_torch.serving.cluster, "
+        "repro_torch.launch.serve\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro'))\n"
         "print(bad)\n"

@@ -41,7 +41,9 @@ from repro_torch.serving.bank import (
     sequence_fingerprint,
 )
 from repro_torch.serving.join import Frontend, JoinRequest
+from repro_torch.serving.cluster import ServingCluster
 from repro_torch.serving.server import PatternServer, encode_queries
+from repro_torch.serving.streaming import StreamingBank
 from repro_torch.serving.trie import (
     build_trie,
     extend_trie,
@@ -268,25 +270,30 @@ def test_oracle_equals_jax(served):
 
 
 def test_device_defaults_to_cuda(served):
-    """With no device given the server runs on cuda, and raises where
-    there is none instead of carrying on on the CPU."""
-    if torch.cuda.is_available():
-        assert PatternServer(served["tbank"]).device.type == "cuda"
-    else:
-        with pytest.raises(RuntimeError, match="no CUDA device"):
-            PatternServer(served["tbank"])
+    """With no device given the server, the streaming window and the
+    cluster run on cuda, and raise where there is none instead of
+    carrying on on the CPU."""
+    makers = [lambda: PatternServer(served["tbank"]),
+              lambda: StreamingBank(served["tbank"], window=4, minsup=2),
+              lambda: ServingCluster(served["tbank"], 2)]
+    for make in makers:
+        if torch.cuda.is_available():
+            obj = make()
+            devs = [h.device for h in obj.hosts] \
+                if isinstance(obj, ServingCluster) else [obj.device]
+            assert {d.type for d in devs} == {"cuda"}
+        else:
+            with pytest.raises(RuntimeError, match="no CUDA device"):
+                make()
 
 
 def test_serve_launcher_on_cpu(monkeypatch, capsys):
-    """The launcher serves and verifies on the CPU, and refuses the
-    modes that are not ported yet instead of falling back."""
+    """The launcher serves and verifies on the CPU on a single host; the
+    streaming and cluster modes are held by
+    tests/test_torch_cluster.py::test_serve_launcher_modes_on_cpu."""
     base = ["serve", "--device", "cpu", "--db-size", "16", "--queries",
             "16", "--emax", "1", "--bank-layout", "trie_fused"]
     monkeypatch.setattr(sys, "argv", base)
     serve.main()
-    assert "(verified)" in capsys.readouterr().out
-    monkeypatch.setattr(sys, "argv", base + ["--window", "10"])
-    with pytest.raises(SystemExit) as exc:
-        serve.main()
-    assert exc.value.code != 0
-    assert "not ported yet" in capsys.readouterr().err
+    out = capsys.readouterr().out
+    assert "(verified)" in out and "host oracle" in out

@@ -22,6 +22,7 @@ from repro_torch.serving.bank import compile_bank
 from repro_torch.serving.server import PatternServer
 from contain_inputs import EDGE_SHAPES, SHAPES, contain_inputs, \
     matching_inputs
+from gather_inputs import FIELDS, out_of_range_steps
 
 
 def _needs_card():
@@ -185,6 +186,26 @@ def test_trie_walk_kernel_edge_cases(fused_calls, case):
     if case == "masked_25":
         dead = kill[args[4][:, 1].long()].cpu()
         assert not (acc[dead].any() or ovft[dead].any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("field", ["all", *FIELDS])
+def test_trie_walk_kernel_out_of_range_steps(fused_calls, field):
+    """Step keys, itemset slots and pattern vertices out of range (-1,
+    -(n+3), n, n+7) in the subtree tables, at the batch's window and at
+    a window of one: the kernel reads them as the plain version does
+    (JAX's take_along_axis) and nothing out of bounds."""
+    args, kw = fused_calls[1]
+    args = [a.clone() for a in args]
+    steps, n_bad = out_of_range_steps(
+        args[5].cpu().numpy(), K=args[2].shape[1], ni=kw["ni"], nv=kw["nv"],
+        fields=tuple(FIELDS) if field == "all" else (field,),
+        every=2 if field == "all" else 1)
+    assert n_bad >= 16
+    args[5] = torch.from_numpy(steps).cuda()
+    for tmax in (kw["tmax"], 1):
+        acc, _ = _walk_equal(args, dict(kw, tmax=tmax))
+        assert acc.any() == (field != "key")
 
 
 @pytest.mark.cuda
