@@ -69,7 +69,30 @@ line) on any failure:
    phase 8's stream and ends each refresh on its map; two read replicas
    serve through a writer refresh, converge, and a crashed one replays
    the recovery log;
-10. one JSON line describing every ported kernel, then the last line
+10. the multi-rank steps (``repro_torch.mining.distributed``,
+   ``repro_torch.serving.sharded``) on the one card: 8 spawned ranks of
+   a gloo world share ``cuda:0`` on a 4 data x 2 model mesh; the mining
+   step (k 4096, both ``prededup`` modes) runs the root scan and every
+   pattern scan of a recorded Table 3 mine (the DB encoded to T = 34,
+   each scan's rows regrouped by DB shard), each equal on every rank to
+   the single-device ``candidate_table_device`` of the same scan made by
+   match_count's plain version on the card, which equals
+   ``aggregate_host``; the flat and trie serving steps over the bank of
+   phase 3's map (padded to an even row count; the trie in 2 shards)
+   join the 1000 queries (250 a data rank, emax 4), equal to the
+   single-rank joins through contain_step's plain version on the card,
+   which equal the host oracle on the first 128 queries where no cell
+   overflowed; each rank's match_count launches equal its mining steps
+   and its contain_step launches its predicate calls; after the counts
+   are read, each rank holds match_count to its plain version on its
+   block of every scan it stepped, and contain_step to its plain
+   version on every call of one more serving step a layout; then one
+   rank of NCCL (a 1x1 mesh) runs the root scan's mining step (without
+   ``prededup``: one rank's pairs pass its k slots) and the flat
+   serving step under the same checks, each repeated for its wall;
+   walls per step and per-rank errors printed, the errors also folded
+   into the kernels' ``max_abs_err``;
+11. one JSON line describing every ported kernel, then the last line
    ``{"ok": true, "device": {...}}``.
 
 It needs a CUDA device and the repository around it: without either it
@@ -119,6 +142,14 @@ SERVE_REPS = 6
 # the streaming phase: phase 3's DB as the window, the queries streamed
 # in as arrivals; the cluster phase's simulated hosts
 STREAM_BATCH, REFRESH_EVERY, COMPACT, N_HOSTS = 50, 4, 0.5, 4
+# the multi-rank phase: 8 gloo ranks on the one card, DIST_DB data x
+# DIST_MODEL model; T = 33 padded to 34 so that it splits over "model";
+# the mining step's k; the scans of the first DIST_PROBE steps estimate
+# the phase's mining time, and past DIST_BUDGET_S only the first
+# DIST_CUT scans run; serving steps timed after the counted one
+DIST_DB, DIST_MODEL, DIST_PAD_T, DIST_K = 4, 2, 34, 4096
+DIST_PROBE, DIST_CUT, DIST_BUDGET_S = 16, 64, 120.0
+DIST_SERVE_REPS, DIST_TIMEOUT_S = 3, 600.0
 # contain_step's random (G, Ein, Tm) cases; its edge shapes are the
 # tests' EDGE_SHAPES (tests/contain_inputs.py)
 CONTAIN_RANDOM = ((1, 1, 1), (65, 4, 9), (4096, 4, 16), (4096, 16, 16))
@@ -1451,6 +1482,460 @@ def phase_cluster(setup, stream) -> dict:
     return launches
 
 
+def _dist_scans(db, sigma, max_len):
+    """The scans of the multi-rank mining phase, as CPU tensors: the root
+    scan (one embedding per sequence) and every pattern scan of a
+    recorded Table 3 mine on the card (each chunk split by pid, a
+    pattern's rows of every chunk of its wave together), each regrouped
+    by DB shard (``gid // (G / DIST_DB)``) into ``DIST_DB`` equal blocks
+    padded with ``valid = 0`` rows, gids made shard-local."""
+    import numpy as np
+    import torch
+
+    from repro_torch.mining import driver
+    from repro_torch.mining.driver import AcceleratedMiner
+    from repro_torch.mining.encoding import PAD_PHI, PAD_PSI, \
+        encode_embeddings, encode_pattern_trs
+    from repro_torch.mining.engine import MODE_ROOT
+
+    g_loc = len(db) // DIST_DB
+    orig = driver.match_signatures_batch
+    rows, tables, wave = {}, {}, [None, -1]
+
+    def record(tokens, gid, phi, psi, valid, pid, ex, nv, npat, mode):
+        if ex is not wave[0]:  # a new wave: new pattern tables
+            wave[:] = [ex, wave[1] + 1]
+        got = [x.cpu().numpy() for x in (gid, phi, psi, valid, pid)]
+        for p in np.unique(got[4][got[3] > 0]):
+            key = (wave[1], int(p))
+            sel = (got[4] == p) & (got[3] > 0)
+            rows.setdefault(key, []).append([x[sel] for x in got[:3]])
+            tables[key] = (ex[p].cpu(), int(nv[p]), int(npat[p]),
+                           int(mode[p]))
+        return orig(tokens, gid, phi, psi, valid, pid, ex, nv, npat, mode)
+
+    driver.match_signatures_batch = record
+    try:
+        AcceleratedMiner(db, device="cuda").mine_rs(sigma, max_len=max_len)
+    finally:
+        driver.match_signatures_batch = orig
+
+    def scan(gid, phi, psi, existing, nv, n_pat, mode):
+        shard = gid // g_loc
+        per = int(np.bincount(shard, minlength=DIST_DB).max())
+        E = DIST_DB * per
+        out = {"gid": np.zeros(E, np.int32),
+               "phi": np.full((E, phi.shape[1]), PAD_PHI, np.int32),
+               "psi": np.full((E, psi.shape[1]), PAD_PSI, np.int32),
+               "valid": np.zeros(E, np.int32)}
+        for s in range(DIST_DB):
+            sel = np.nonzero(shard == s)[0]
+            at = slice(s * per, s * per + len(sel))
+            out["gid"][at] = gid[sel] % g_loc
+            out["phi"][at], out["psi"][at] = phi[sel], psi[sel]
+            out["valid"][at] = 1
+        # the global gids, for the single-device reference
+        out["ggid"] = (out["gid"] + np.arange(E) // per * g_loc).astype(
+            np.int32)
+        res = {k: torch.from_numpy(v) for k, v in out.items()}
+        res.update(existing=torch.as_tensor(existing), nv=nv, n_pat=n_pat,
+                   mode=mode)
+        return res
+
+    gid, phi, psi = encode_embeddings([(g, (), ()) for g in range(len(db))],
+                                      NI, NV)
+    scans = [scan(gid, phi, psi, encode_pattern_trs((), P), 0, 0,
+                  MODE_ROOT)]
+    for key in sorted(rows):
+        parts = rows[key]
+        ex, nv, npat, mode = tables[key]
+        if npat == 0:  # the miner's own root scan
+            continue
+        scans.append(scan(*[np.concatenate([p[i] for p in parts])
+                            for i in range(3)], ex.numpy(), nv, npat, mode))
+    return scans
+
+
+def _dist_inputs(res, setup) -> dict:
+    """Everything the ranks of phase 10 read, with the single-rank
+    references they are held to, computed here on the card and checked
+    against the host's finalize and oracle first."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.containment import contains
+    from repro_torch.kernels.containment import ref as cref
+    from repro_torch.mining.encoding import encode_db
+    from repro_torch.mining.engine import aggregate_host, \
+        candidate_table_device, match_signatures_ref
+    from repro_torch.serving import batch
+    from repro_torch.serving.bank import compile_bank
+    from repro_torch.serving.batch import batch_contains, max_key_bucket, \
+        trie_contains
+    from repro_torch.serving.sharded import stack_trie_shards
+
+    t0 = time.perf_counter()
+    db, sigma, max_len = _table3_db()
+    tokens = torch.from_numpy(encode_db(db, pad_to=DIST_PAD_T).tokens)
+    scans = _dist_scans(db, sigma, max_len)
+    tok_c = tokens.cuda()
+    for sc in scans:
+        args = [sc[k].cuda() for k in ("ggid", "phi", "psi", "valid",
+                                       "existing")]
+        # a (row, token) signature does not depend on how the DB is
+        # split, so the plain scan of the whole DB is every block's
+        sigs = match_signatures_ref(tok_c, *args, sc["nv"], sc["n_pat"],
+                                    sc["mode"])
+        uniq, counts = candidate_table_device(sigs, args[0], DIST_K)
+        host = {s: len(g) for s, (g, _) in aggregate_host(
+            sigs.cpu().numpy(), sc["ggid"].numpy()).items()}
+        table = {int(s): int(c) for s, c in zip(uniq.tolist(),
+                                                counts.tolist()) if s >= 0}
+        if len(host) >= DIST_K or table != host:
+            raise AssertionError(
+                f"candidate_table_device differs from aggregate_host on a "
+                f"scan ({len(table)} vs {len(host)} signatures)")
+        sc["uniq"], sc["counts"] = uniq.cpu(), counts.cpu()
+    n_rows = sum(int(sc["valid"].sum()) for sc in scans)
+    log(f"[multi-rank] {len(scans)} scans of the Table 3 mine (the root "
+        f"and {len(scans) - 1} patterns; {n_rows} embeddings, T "
+        f"{tokens.shape[1]}), each scanned by match_count's plain version "
+        f"on cuda: candidate_table_device == aggregate_host on each, at "
+        f"most {max(int((sc['uniq'] >= 0).sum()) for sc in scans)}"
+        f" signatures (k = {DIST_K})")
+
+    bank, trie, queries = setup["bank"], setup["trie"], setup["queries"]
+    n_pat = bank.n_patterns
+    flat = compile_bank(res, pad_patterns_to=n_pat + n_pat % 2)
+    stack = stack_trie_shards(trie.shard(DIST_MODEL))
+    q_tok = torch.from_numpy(encode_db(queries).tokens)
+    tmax = max_key_bucket(q_tok.numpy(), bank.n_label_keys)
+    serve = {"tokens": q_tok, "nv": int(bank.nv),
+             "n_label_keys": int(bank.n_label_keys), "tmax": int(tmax),
+             "steps": torch.from_numpy(flat.steps),
+             "pattern_valid": torch.from_numpy(flat.pattern_valid)}
+    for key in ("lvl_steps", "lvl_parent_pos", "term_level", "term_pos"):
+        serve[key] = torch.from_numpy(stack[key])
+    serve["trie_valid"] = torch.from_numpy(stack["pattern_valid"])
+    kw = dict(nv=bank.nv, n_label_keys=bank.n_label_keys, emax=EMAX,
+              tmax=tmax)
+    c = {k: v.cuda() for k, v in serve.items()
+         if isinstance(v, torch.Tensor)}
+    # the references join on cuda through contain_step's plain version
+    kernel, batch.contain_step = batch.contain_step, cref.contain_step_core
+    try:
+        ref = {"flat": batch_contains(c["tokens"], c["steps"],
+                                      c["pattern_valid"], **kw)}
+        S, Pl = DIST_MODEL, stack["rows_per_shard"]
+        Mh = stack["lvl_steps"].shape[1] // S
+        parts = [trie_contains(
+            c["tokens"],
+            c["lvl_steps"][:, s * Mh:(s + 1) * Mh].contiguous(),
+            c["lvl_parent_pos"][:, s * Mh:(s + 1) * Mh].contiguous(),
+            *[c[k][s * Pl:(s + 1) * Pl]
+              for k in ("term_level", "term_pos", "trie_valid")], **kw)
+            for s in range(S)]
+    finally:
+        batch.contain_step = kernel
+    ref["trie"] = tuple(torch.cat([p[i] for p in parts], 1)
+                        for i in (0, 1))
+    pats = {"flat": flat.patterns,
+            "trie": [p for sh in stack["patterns"] for p in sh]}
+    cols = {"flat": np.nonzero(flat.pattern_valid)[0],
+            "trie": np.nonzero(stack["pattern_valid"])[0]}
+    for layout, (con, ovf) in ref.items():
+        con, ovf = con.cpu().numpy(), ovf.cpu().numpy()
+        want = np.array([[contains(p, s) for p in pats[layout]]
+                         for s in queries[:N_ORACLE]])
+        got = con[:N_ORACLE][:, cols[layout]]
+        ok = ~ovf[:N_ORACLE][:, cols[layout]]
+        if not np.array_equal(got[ok], want[ok]):
+            raise AssertionError(f"the single-rank {layout} join differs "
+                                 f"from the host oracle")
+        serve[f"{layout}_contained"], serve[f"{layout}_overflow"] = \
+            torch.from_numpy(con), torch.from_numpy(ovf)
+        log(f"[multi-rank] single-rank {layout} join of {len(queries)} "
+            f"queries x {con.shape[1]} columns on cuda, contain_step's "
+            f"plain version: "
+            f"{int(con.sum())} containments, {int(ovf.sum())} overflow "
+            f"cells; == host oracle on the first {N_ORACLE} queries where "
+            f"no cell overflowed ({int(ok.sum())} cells)")
+    log(f"[multi-rank] inputs and references built in "
+        f"{time.perf_counter() - t0:.2f}s")
+    return {"tokens": tokens, "scans": scans, "serve": serve}
+
+
+def _dist_job(in_path, scope) -> dict:
+    """One rank of phase 10's world (run by ``run_world``): the mining
+    step over every scan in both ``prededup`` modes (``scope`` "all") or
+    the root scan's step without it, repeated (``scope`` "one"); then
+    the flat and the trie serving steps ("all") or the flat one; every
+    output held to the single-rank reference, and after the counts were
+    read each kernel held to its plain version on this rank's blocks;
+    returns a report of counts, walls, errors and mismatches."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.collectives import rank_device
+    from repro_torch.kernels.containment import ops as cops
+    from repro_torch.kernels.match_count import ops as mops
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.mining.distributed import make_mining_step
+    from repro_torch.serving import batch
+    from repro_torch.serving.sharded import make_serving_step, \
+        make_trie_serving_step
+
+    world = dist.get_world_size()
+    mesh = make_host_mesh(model=min(DIST_MODEL, world), device="cuda")
+    dev = rank_device(mesh)
+    data = torch.load(in_path)
+    tokens = data["tokens"].to(dev)
+    # "one": the root scan, timed again after the counted step
+    scans = data["scans"] if scope == "all" else \
+        data["scans"][:1] * (1 + DIST_SERVE_REPS)
+    # a 1x1 mesh is one DB shard: it takes the global gids
+    gid_key = "gid" if world > 1 else "ggid"
+    report = {"rank": dist.get_rank(), "coord": tuple(mesh.get_coordinate()),
+              "mining": {}, "serving": {}}
+    n_scans = len(scans)
+    # one rank holds every pair of a scan, past prededup's k pair slots
+    # (a cut, as in the JAX package): the 1x1 mesh gathers the signature
+    # matrix
+    for prededup in ((False, True) if scope == "all" else (False,)):
+        step = make_mining_step(mesh, k=DIST_K, prededup=prededup)
+        mops.launches = 0
+        walls, bad, nd_max = [], 0, 0
+        for i, sc in enumerate(scans):
+            if i == n_scans:
+                break
+            args = [sc[k].to(dev) for k in (gid_key, "phi", "psi", "valid",
+                                            "existing")]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            uniq, counts, nd = step(tokens, *args, sc["nv"], sc["n_pat"],
+                                    sc["mode"])
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            bad += int(not (torch.equal(uniq.cpu(), sc["uniq"]) and
+                            torch.equal(counts.cpu(), sc["counts"])))
+            nd_max = max(nd_max, int(nd))
+            if not prededup and i == DIST_PROBE - 1 and n_scans > DIST_CUT:
+                # the time budget, decided alike on every rank
+                est = torch.tensor(sum(walls) / len(walls) * 2 * n_scans,
+                                   device=dev)
+                dist.all_reduce(est, op=dist.ReduceOp.MAX)
+                if float(est) > DIST_BUDGET_S:
+                    n_scans = DIST_CUT
+        report["mining"]["prededup" if prededup else "full"] = {
+            "scans": len(walls), "of": len(scans), "walls": walls,
+            "mismatches": bad, "n_distinct_max": nd_max,
+            "launches": mops.launches}
+    # after the counts were read
+    report.update(_local_checks(mesh, tokens, scans[:n_scans], gid_key))
+    serve = {k: v.to(dev) if isinstance(v, torch.Tensor) else v
+             for k, v in data["serve"].items()}
+    kw = dict(nv=serve["nv"], n_label_keys=serve["n_label_keys"],
+              emax=EMAX, tmax=serve["tmax"])
+    layouts = {"flat": (make_serving_step, ("tokens", "steps",
+                                             "pattern_valid")),
+               "trie": (make_trie_serving_step, (
+                   "tokens", "lvl_steps", "lvl_parent_pos", "term_level",
+                   "term_pos", "trie_valid"))}
+    for layout in (("flat", "trie") if scope == "all" else ("flat",)):
+        make, names = layouts[layout]
+        step = make(mesh, **kw)
+        cops.launches = batch.predicate_calls = 0
+        walls, bad = [], 0
+        for _ in range(1 + DIST_SERVE_REPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            con, ovf = step(*[serve[n] for n in names])
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            bad += int(not (torch.equal(con, serve[f"{layout}_contained"])
+                            and torch.equal(ovf,
+                                            serve[f"{layout}_overflow"])))
+        report["serving"][layout] = {
+            "steps": len(walls), "walls": walls, "mismatches": bad,
+            "launches": cops.launches,
+            "predicate_calls": batch.predicate_calls}
+        # after the counts were read
+        report["serving"][layout].update(
+            _checked_step(step, [serve[n] for n in names]))
+    return report
+
+
+def _local_checks(mesh, tokens, scans, gid_key) -> dict:
+    """This rank's block of every scan its mining step ran, as the step
+    cuts it: match_count's largest error against its plain version on
+    the block, and, for the first ``DIST_PROBE`` scans, the wall of the
+    step's work on this rank alone (its block's scan and table, no
+    collective: the step's wall less this is its collectives and
+    waits)."""
+    import torch
+
+    from repro_torch.collectives import axes_index, shard_block
+    from repro_torch.mining.distributed import _local_candidate_table
+    from repro_torch.mining.engine import match_signatures, \
+        match_signatures_ref
+
+    shard, n_db = axes_index(mesh, ("data",))
+    tok_i, n_tok = axes_index(mesh, ("model",))
+    G, T = tokens.shape[:2]
+    tok = tokens[shard_block(G, n_db, shard, "sequences"),
+                 shard_block(T, n_tok, tok_i, "tokens")].contiguous()
+    walls, err, shapes = [], 0, set()
+    for i, sc in enumerate(scans):
+        rows = shard_block(sc[gid_key].shape[0], n_db, shard, "rows")
+        args = [sc[k][rows].to(tokens.device) for k in (
+            gid_key, "phi", "psi", "valid")]
+        args.append(sc["existing"].to(tokens.device))
+        scalars = (sc["nv"], sc["n_pat"], sc["mode"])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sigs = match_signatures(tok, *args, *scalars)
+        _local_candidate_table(sigs, args[0] + shard * tok.shape[0], DIST_K)
+        torch.cuda.synchronize()
+        if i < DIST_PROBE:
+            walls.append(time.perf_counter() - t0)
+        err = max(err, _abs_err(sigs, match_signatures_ref(tok, *args,
+                                                           *scalars)))
+        shapes.add(tuple(sigs.shape))
+    return {"local_walls": walls, "match_count_err": err,
+            "match_count_shapes": sorted(shapes)}
+
+
+def _checked_step(step, args) -> dict:
+    """One more serving step whose every contain_step call is held to
+    the plain version on the same inputs: the largest error and the
+    (G, Ein, Tm) of the calls."""
+    from repro_torch.kernels.containment import ref as cref
+    from repro_torch.serving import batch
+
+    kernel, errs, shapes = batch.contain_step, [], set()
+
+    def both(tok, psi, srow):
+        got = kernel(tok, psi, srow)
+        errs.append(_abs_err(got, cref.contain_step_core(tok, psi, srow)))
+        shapes.add(tuple(got.shape))
+        return got
+
+    batch.contain_step = both
+    try:
+        step(*args)
+    finally:
+        batch.contain_step = kernel
+    return {"contain_step_err": max(errs), "contain_step_calls": len(errs),
+            "contain_step_shapes": sorted(shapes)}
+
+
+def _run_world(world, backend, in_path, tag, scope):
+    """Run ``_dist_job`` on ``world`` spawned ranks of ``backend`` and
+    return their reports, in rank order (``tests/torch_dist_worker.py``
+    spawns them, raises with a failed rank's traceback and stops every
+    rank past ``DIST_TIMEOUT_S``)."""
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    from torch_dist_worker import run_world
+
+    work = os.path.join(ROOT, "build", "multi_rank", tag)
+    os.makedirs(work, exist_ok=True)
+    t0 = time.perf_counter()
+    reports = run_world(_dist_job, world, work, in_path, scope,
+                        backend=backend, timeout=DIST_TIMEOUT_S)
+    log(f"[multi-rank] {tag}: {world} rank(s) ({backend}) on cuda:0 done "
+        f"in {time.perf_counter() - t0:.2f}s")
+    return reports
+
+
+def _check_world(tag, reports) -> dict:
+    """Every rank's outputs equal the references, its launches its own
+    device calls, each kernel its plain version on the rank's blocks;
+    the per-rank counts and errors and rank 0's walls printed.  Returns
+    each kernel's largest error."""
+    for rep in reports:
+        for mode, m in rep["mining"].items():
+            if m["mismatches"] or m["n_distinct_max"] > DIST_K or \
+                    m["launches"] != m["scans"] or not m["scans"]:
+                raise AssertionError(f"{tag} rank {rep['rank']} mining "
+                                     f"({mode}): {m}")
+        for layout, s in rep["serving"].items():
+            if s["mismatches"] or not s["predicate_calls"] or \
+                    s["launches"] != s["predicate_calls"] or \
+                    s["contain_step_calls"] * s["steps"] != \
+                    s["predicate_calls"]:
+                raise AssertionError(f"{tag} rank {rep['rank']} serving "
+                                     f"({layout}): {s}")
+    errs = {"match_count": max(r["match_count_err"] for r in reports),
+            "contain_step": max(s["contain_step_err"] for r in reports
+                                for s in r["serving"].values())}
+    log(f"[multi-rank] {tag} per-rank launches == device calls: " + "; ".join(
+        f"rank {r['rank']} {r['coord']}: " + ", ".join(
+            [f"match_count {m['launches']}/{m['scans']} steps ({mode})"
+             for mode, m in r['mining'].items()] +
+            [f"contain_step {s['launches']}/{s['predicate_calls']} "
+             f"predicate calls ({layout})"
+             for layout, s in r['serving'].items()])
+        for r in reports))
+    r0 = reports[0]
+    es, ts = (sorted({sh[i] for sh in r0["match_count_shapes"]})
+              for i in (0, 1))
+    log(f"[multi-rank] {tag} each rank's kernels vs their plain versions on "
+        f"its blocks: match_count max_abs_err {errs['match_count']} over "
+        f"every scan it stepped (rank 0's [E, T]: {len(es)} E from "
+        f"{es[0]} to {es[-1]}, T {', '.join(map(str, ts))}); "
+        f"contain_step max_abs_err {errs['contain_step']} over every call "
+        f"of one more step a layout (rank 0's [G, Ein, Tm] " + "; ".join(
+            f"{layout} " + ", ".join("x".join(map(str, sh))
+                                     for sh in s["contain_step_shapes"])
+            for layout, s in r0["serving"].items()) + ")")
+    if any(errs.values()):
+        raise AssertionError(f"{tag}: a kernel differs from its plain "
+                             f"version on a rank's block: {errs}")
+    for mode, m in r0["mining"].items():
+        ms = [1e3 * w for w in m["walls"]]
+        if m["scans"] < m["of"]:
+            log(f"[multi-rank] {tag} mining ({mode}): cut to the first "
+                f"{m['scans']} of {m['of']} scans (the estimate passed "
+                f"{DIST_BUDGET_S}s)")
+        log(f"[multi-rank] {tag} mining step ({mode}), rank 0: "
+            f"{m['scans']} steps == single-device candidate_table_device, "
+            f"n_distinct <= {m['n_distinct_max']}; wall per step median "
+            f"{statistics.median(ms):.3f} ms, mean "
+            f"{statistics.mean(ms):.3f} ms, min {min(ms):.3f}, max "
+            f"{max(ms):.3f} (first {ms[0]:.3f})")
+    ms = [1e3 * w for r in reports for w in r["local_walls"]]
+    log(f"[multi-rank] {tag} the step's work on one rank alone (its "
+        f"block's scan and table, no collective), the first "
+        f"{len(r0['local_walls'])} scans on every rank: median "
+        f"{statistics.median(ms):.3f} ms, min {min(ms):.3f}, max "
+        f"{max(ms):.3f}")
+    for layout, s in r0["serving"].items():
+        ms = [1e3 * w for w in s["walls"]]
+        log(f"[multi-rank] {tag} {layout} serving step, rank 0: "
+            f"{s['steps']} steps == the single-rank join; wall per step "
+            f"{', '.join(f'{x:.3f}' for x in ms)} ms (median of the last "
+            f"{DIST_SERVE_REPS} {statistics.median(ms[1:]):.3f} ms)")
+    return errs
+
+
+def phase_multi_rank(res, setup) -> dict:
+    """Phase 10: the multi-rank steps on the one card; returns each
+    kernel's largest error against its plain version on a rank's
+    blocks."""
+    import torch
+
+    data = _dist_inputs(res, setup)
+    in_path = os.path.join(ROOT, "build", "multi_rank", "inputs.pt")
+    os.makedirs(os.path.dirname(in_path), exist_ok=True)
+    torch.save(data, in_path)
+    errs = [_check_world("gloo 4x2", _run_world(
+                DIST_DB * DIST_MODEL, "cpu:gloo,cuda:gloo", in_path, "gloo",
+                "all")),
+            _check_world("nccl 1x1", _run_world(1, "nccl", in_path, "nccl",
+                                                "one"))]
+    return {name: max(e[name] for e in errs) for name in errs[0]}
+
+
 def phase_serve_launcher() -> None:
     env = dict(os.environ)
     env["PYTHONPATH"] = SRC + (os.pathsep + env["PYTHONPATH"]
@@ -1525,8 +2010,10 @@ def main() -> int:
     phase_serve_launcher()
     stream = phase_streaming(setup)
     phase_cluster(setup, stream)
+    dist_errs = phase_multi_rank(res, setup)
 
     for k in kernels:
+        k["max_abs_err"] = max(k["max_abs_err"], dist_errs.get(k["name"], 0))
         k["launches"] = launches[k["name"]]
         k["status"] = "ok"
     log(f"[done] {time.perf_counter() - t_start:.1f}s")

@@ -19,9 +19,12 @@ cannot extend the embedding under the current search phase:
 
 Both scans are the match_count kernel (``kernels.match_count.ops``): on a
 CUDA tensor its hand-written CUDA kernel, on a CPU tensor its plain
-PyTorch version.  Supports are distinct-gid counts per signature;
-`aggregate_host` is the exact numpy finalize (vectorized: one sort +
-boundary split, no per-signature python).
+PyTorch version (``match_signatures_ref`` / ``match_signatures_batch_ref``
+are those plain versions).  Supports are distinct-gid counts per
+signature; `aggregate_host` is the exact numpy finalize (vectorized: one
+sort + boundary split, no per-signature python), `candidate_table_device`
+the fixed-size on-device variant used by the distributed step (see
+distributed.py).
 
 ``match_signatures_batch`` / ``aggregate_host_batch`` are the wavefront
 forms: rows of *different* patterns share one dispatch, carrying a
@@ -32,9 +35,10 @@ scheduler.
 """
 from __future__ import annotations
 
-from typing import Dict, Set, Tuple
+from typing import Dict, Sequence, Set, Tuple
 
 import numpy as np
+import torch
 
 from ..kernels.match_count.ops import (  # noqa: F401
     match_signatures_batch,
@@ -45,7 +49,10 @@ from ..kernels.match_count.ref import (  # noqa: F401
     MODE_ROOT,
     MODE_TAIL,
     MODE_VERTEX_PHASE,
+    match_signatures_batch_ref,
+    match_signatures_ref,
 )
+from .encoding import INVALID_SIG
 
 
 def _group_finalize(svals, e_idx, t_idx, g):
@@ -118,3 +125,81 @@ def aggregate_host_batch(
         (int(k >> 32), int(k & 0xFFFFFFFF)): (set(gg.tolist()), et)
         for k, gg, et in zip(keys, gid_groups, et_groups)
     }
+
+
+def _unique_fixed(x: torch.Tensor, k: int):
+    """``jnp.unique(x, size=k, fill_value=INVALID_SIG,
+    return_inverse=True)``: the sorted distinct values cut to ``k`` and
+    padded with ``INVALID_SIG`` (a real -1 takes a slot like any value),
+    and for each element its index into the *full* sorted distinct
+    values, so an element whose value was cut off gets an index >= k."""
+    full, inv = torch.unique(x, sorted=True, return_inverse=True)
+    uniq = torch.full((k,), int(INVALID_SIG), dtype=x.dtype, device=x.device)
+    n = min(k, full.numel())
+    uniq[:n] = full[:n]
+    return uniq, inv
+
+
+def _segment_sum(vals: torch.Tensor, inv: torch.Tensor, k: int):
+    """``jax.ops.segment_sum(vals, inv, num_segments=k)`` as int32: the
+    entries whose segment is >= k are dropped (``index_add_`` would
+    raise on them)."""
+    keep = inv < k
+    out = torch.zeros((k,), dtype=torch.int32, device=vals.device)
+    return out.index_add_(0, inv[keep], vals[keep].to(torch.int32))
+
+
+def _lexsort_pairs(sig: torch.Tensor, gid: torch.Tensor) -> torch.Tensor:
+    """The order of ``jnp.lexsort((gid, sig))``: by signature, then by
+    gid, each as a signed int32; two stable sorts."""
+    by_gid = torch.sort(gid, stable=True).indices
+    return by_gid[torch.sort(sig[by_gid], stable=True).indices]
+
+
+def _shifted(x: torch.Tensor, first: int) -> torch.Tensor:
+    """``x`` moved one place right, ``first`` in front: each element's
+    predecessor in a sorted run."""
+    return torch.cat([x.new_full((1,), first), x[:-1]])
+
+
+def _pair_table(flat_sig: torch.Tensor, flat_gid: torch.Tensor, k: int, *,
+                gid_pads: bool = False):
+    """(sig -> distinct-gid count) table [k] of flat (sig, gid) pairs,
+    which may repeat, and the count of distinct real signatures (int32
+    0-d).  With ``gid_pads`` a pair whose gid is < 0 is a pad and counts
+    for nothing."""
+    order = _lexsort_pairs(flat_sig, flat_gid)
+    ss, gg = flat_sig[order], flat_gid[order]
+    new_sig = ss != _shifted(ss, -2)
+    contrib = (new_sig | (gg != _shifted(gg, -2))) & (ss >= 0)
+    if gid_pads:
+        contrib &= gg >= 0
+    n_distinct = (new_sig & (ss >= 0)).sum().to(torch.int32)
+    uniq, inv = _unique_fixed(ss, k)
+    counts = _segment_sum(contrib, inv, k)
+    return uniq, torch.where(uniq >= 0, counts, 0), n_distinct
+
+
+def _row_pairs(sigs: torch.Tensor, gids: torch.Tensor):
+    """The (sig, gid) pairs of a [E, T] signature matrix, flat."""
+    E, T = sigs.shape
+    return sigs.reshape(-1), gids[:, None].expand(E, T).reshape(-1)
+
+
+def candidate_table_device(sigs: torch.Tensor, gids: torch.Tensor, k: int):
+    """Fixed-size on-device candidate table.
+
+    Returns (uniq_sigs [k], distinct_gid_counts [k]), both int32.  Exact
+    when the number of distinct signatures in this shard is < k (the
+    driver checks and re-runs with larger k otherwise; -1 rows are pads).
+    """
+    return _pair_table(*_row_pairs(sigs, gids), k)[:2]
+
+
+def merge_tables(uniq_list: Sequence[torch.Tensor],
+                 counts_list: Sequence[torch.Tensor], k: int):
+    """Merge per-shard (sig,count) tables by summing counts per signature
+    (gid shards are disjoint so distinct-gid counts add)."""
+    uniq, inv = _unique_fixed(torch.cat(list(uniq_list)), k)
+    counts = _segment_sum(torch.cat(list(counts_list)), inv, k)
+    return uniq, torch.where(uniq >= 0, counts, 0)

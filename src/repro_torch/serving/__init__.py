@@ -1,8 +1,7 @@
-"""Query-time pattern serving on one host: from a ``MiningResult`` to
-exact containment queries, on the card or the CPU.
+"""Query-time pattern serving: from a ``MiningResult`` to exact
+containment queries, on the card or the CPU.
 
-Counterpart of the JAX package's ``repro.serving``; the sharded
-multi-device serving step (``sharded.py``) is still to come:
+Counterpart of the JAX package's ``repro.serving``:
 
 * ``bank.py``    - compile a ``MiningResult`` into a packed pattern bank
                    (per-pattern int32 step programs + support/metadata
@@ -27,6 +26,10 @@ multi-device serving step (``sharded.py``) is still to come:
                    any registered layout, fingerprint LRU cache, top-k
                    scoring, device escalation + host-oracle fallback, so
                    results always equal ``core.containment``.
+* ``sharded.py`` - shard-by-pattern (flat) / shard-by-subtree (trie)
+                   serving steps over a ``torch.distributed`` device
+                   mesh (each rank joins its block; one all_gather
+                   assembles the answer).
 * ``streaming.py`` - ``StreamingBank``: exact supports over a sliding
                    window, tombstones, incremental frontier refresh
                    (``mining.incremental``), read-replica deltas.
@@ -40,10 +43,25 @@ multi-device serving step (``sharded.py``) is still to come:
                    simulated hosts pinned to torch devices.
 """
 from .bank import (  # noqa: F401
+    BankCapacityError,
     PatternBank,
     bank_from_reference,
+    canonical_sequence_map,
     compile_bank,
+    extend_bank,
     sequence_fingerprint,
+    slice_bank,
+)
+from .batch import (  # noqa: F401
+    batch_contains,
+    index_and_node_prescreen,
+    index_and_prescreen,
+    max_key_bucket,
+    pair_contains,
+    pair_contains_indexed,
+    prescreen_counts,
+    trie_contains,
+    trie_level_advance,
 )
 from .cluster import (  # noqa: F401
     BankReplica,
@@ -64,7 +82,12 @@ from .faults import (  # noqa: F401
     TransientHostError,
 )
 from .join import Frontend, JoinRequest, JoinResult  # noqa: F401
-from .layouts import Layout, get_layout, layout_names  # noqa: F401
+from .layouts import (  # noqa: F401
+    Layout,
+    get_layout,
+    layout_names,
+    register_layout,
+)
 from .router import (  # noqa: F401
     BankPlacement,
     ClusterRouter,
@@ -78,5 +101,19 @@ from .server import (  # noqa: F401
     SharedEncoding,
     encode_queries,
 )
+from .sharded import (  # noqa: F401
+    make_serving_step,
+    make_trie_serving_step,
+    stack_trie_shards,
+)
 from .streaming import ObserveResult, StreamingBank  # noqa: F401
-from .trie import TrieBank, build_trie, pack_subtrees  # noqa: F401
+from .trie import (  # noqa: F401
+    SubtreePack,
+    TrieBank,
+    build_trie,
+    compile_trie_bank,
+    extend_trie,
+    masked_node_req,
+    pack_subtrees,
+    parent_prefix_hits,
+)
