@@ -92,7 +92,22 @@ line) on any failure:
    serving step under the same checks, each repeated for its wall;
    walls per step and per-rank errors printed, the errors also folded
    into the kernels' ``max_abs_err``;
-11. one JSON line describing every ported kernel, then the last line
+11. the LM family (``repro_torch.models``, ``training``, ``configs``;
+   no TPU kernel lies on it, its products are plain matmuls), fp32
+   products in full fp32: blockwise == naive attention at smollm-135m's
+   heads; smollm-135m at full width (134.5M params) takes the arch's
+   train step 4 times at seq 4096, batch 8 (step 1's loss and gradient
+   norm at bf16 within 2e-2 of fp32 compute), 2 more through
+   ``train_loop.train`` with grad_accum 2 and async checkpoints
+   (restored bit-equal), prefills at seq 32768 (batch 1) and decodes 32
+   tokens at batch 16 on a 32768-slot cache, and decode equals forward
+   + logits over 64 tokens at fp32 (2e-4); olmoe-1b-7b's MoE layer on
+   4096 tokens equals a per-expert loop (1e-4, the same dropped routes)
+   and the whole model (6.92B fp32 params) prefills 2048 tokens; the
+   five LM smoke configs' train step on cuda is held to the CPU's; the
+   train launcher on cuda learns in 100 steps; an attention yardstick
+   (blockwise vs ``scaled_dot_product_attention``) is printed only;
+12. one JSON line describing every ported kernel, then the last line
    ``{"ok": true, "device": {...}}``.
 
 It needs a CUDA device and the repository around it: without either it
@@ -102,6 +117,7 @@ the JAX package.
 from __future__ import annotations
 
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -556,10 +572,10 @@ def phase_match_count_chunk(chunk) -> int:
     return _abs_err(got, want)
 
 
-def _log_device_times(tag, prof, prof_wall, wall, top_n=6):
+def _log_device_times(tag, prof, prof_wall, wall, top_n=6, port=True):
     """Device time by kernel and copy from a profiler run (device
     activity only), and the device-busy share of the unprofiled
-    ``wall``."""
+    ``wall``; with ``port``, the port's kernels by name."""
     dev = {}
     for ev in prof.key_averages():
         us = getattr(ev, "device_time_total", None)
@@ -578,10 +594,11 @@ def _log_device_times(tag, prof, prof_wall, wall, top_n=6):
             + "; ".join(f"{k[:48]} {v / 1e3:.4f} ms / {n} = "
                         f"{v / max(n, 1):.2f} us each"
                         for k, (v, n) in top))
+    if dev and port:
         log(f"{tag} port kernels: " + "; ".join(
             "{} {:.5f} ms / {}".format(name, *_named_sum(dev, name))
             for name in PORT_KERNELS))
-    else:
+    if not dev:
         log(f"{tag} the profiler recorded no device time: not measured")
 
 
@@ -1978,6 +1995,395 @@ def phase_launcher() -> None:
         f"{time.perf_counter() - t0:.2f}s")
 
 
+# phase 11, the LM family: smollm-135m at full width (train_4k's seq at
+# batch 8, cut from 256; prefill at seq 32768, batch 1, cut from 32;
+# decode at batch 16, cut from 128, on a 32768-slot cache)
+LM_ARCH, MOE_ARCH = "smollm-135m", "olmoe-1b-7b"
+LM_IDS = ("glm4-9b", "gemma-7b", "smollm-135m",
+          "llama4-maverick-400b-a17b", "olmoe-1b-7b")
+LM_BATCH, LM_SEQ, LM_STEPS, LM_LOOP_STEPS = 8, 4096, 4, 2
+LM_PREFILL_SEQ, LM_DECODE_BATCH, LM_DECODE_TOKENS = 32768, 16, 32
+# the checks: bf16 step 1 vs fp32; blockwise vs naive attention at
+# [1, 4096, 9, 64] / kv 3 (fp32); decode vs forward over 64 tokens at
+# batch 2 (fp32), the JAX decode test's tolerance
+LM_STEP1_RTOL, LM_ATTN_TOL, LM_DECODE_CHECK = 2e-2, 2e-5, 64
+# olmoe-1b-7b: one MoE layer on 4096 tokens (fp32) against a per-expert
+# loop; the whole model's prefill at batch 1, seq 2048 (fp32 params)
+MOE_TOKENS, MOE_TOL, MOE_PREFILL_SEQ = 4096, 1e-4, 2048
+LM_LAUNCH_STEPS = 100
+
+
+def _mem_gb() -> str:
+    import torch
+
+    return f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB"
+
+
+def _reset_mem() -> None:
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+
+def _lm_batches(seed, vocab, batch, seq, device):
+    import torch
+    from repro_torch.data.lm import token_batches
+
+    for b in token_batches(seed, vocab, batch, seq):
+        yield {k: torch.as_tensor(v, device=device) for k, v in b.items()}
+
+
+def _tree_max_diff(a, b) -> float:
+    from repro_torch.models.common import tree_leaves
+
+    return max(float((x.float() - y.float()).abs().max())
+               for x, y in zip(tree_leaves(a), tree_leaves(b)))
+
+
+def _lm_profile(tag, fn, wall) -> None:
+    """Device time by kernel of one more call of ``fn`` under the
+    profiler, against ``wall``, the unprofiled call's seconds."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        prof_wall = time.perf_counter() - t0
+    _log_device_times(tag, prof, prof_wall, wall, top_n=8, port=False)
+
+
+def _lm_attention(gpu: str) -> None:
+    """blockwise == naive at smollm's heads, fp32; then the yardstick:
+    the blockwise forward at [8, 4096, 9, 64] / kv 3 in bf16 beside
+    ``scaled_dot_product_attention`` on the GQA-expanded inputs (printed
+    only: the port never calls it)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.models.attention import blockwise_causal_attention, \
+        naive_causal_attention
+
+    g = torch.Generator("cuda").manual_seed(11)
+    q = torch.randn(1, 4096, 9, 64, generator=g, device="cuda")
+    k = torch.randn(1, 4096, 3, 64, generator=g, device="cuda")
+    v = torch.randn(1, 4096, 3, 64, generator=g, device="cuda")
+    got = blockwise_causal_attention(q, k, v, block_q=512, block_kv=1024)
+    want = naive_causal_attention(q, k, v)
+    err = float((got - want).abs().max())
+    if not err <= LM_ATTN_TOL:
+        raise AssertionError(f"blockwise vs naive attention: {err}")
+    log(f"[lm] blockwise == naive attention at [1, 4096, 9, 64] / kv 3, "
+        f"fp32: max |diff| {err:.3g} (<= {LM_ATTN_TOL})")
+
+    q = torch.randn(8, 4096, 9, 64, generator=g, device="cuda",
+                    dtype=torch.bfloat16)
+    k = torch.randn(8, 4096, 3, 64, generator=g, device="cuda",
+                    dtype=torch.bfloat16)
+    v = torch.randn(8, 4096, 3, 64, generator=g, device="cuda",
+                    dtype=torch.bfloat16)
+    qh, kh, vh = (x.transpose(1, 2) for x in
+                  (q, k.repeat_interleave(3, 2), v.repeat_interleave(3, 2)))
+    with torch.no_grad():
+        ours, _ = _time_ms(lambda: blockwise_causal_attention(
+            q, k, v, block_q=512, block_kv=1024), reps=3, rounds=3)
+        lib, _ = _time_ms(lambda: F.scaled_dot_product_attention(
+            qh, kh, vh, is_causal=True), reps=10, rounds=3)
+    log(f"[lm] attention yardstick [8, 4096, 9, 64] / kv 3, bf16 in: "
+        f"blockwise forward {ours:.3f} ms, scaled_dot_product_attention "
+        f"(is_causal, GQA expanded) {lib:.3f} ms ({gpu})")
+
+
+def _lm_smollm(gpu: str) -> None:
+    """smollm-135m at full width: the arch's train step, the train loop
+    with grad_accum 2 and a checkpoint, prefill at 32768, decode on a
+    32768-slot cache, and the checks on the card."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.common import count_params, value_and_grad
+    from repro_torch.models.common import tree_leaves
+    from repro_torch.training import checkpoint, train_loop
+    from repro_torch.training.optimizer import global_norm
+
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    from torch_lm_checks import decode_vs_forward
+
+    arch = get_arch(LM_ARCH)
+    cfg = arch.cfg
+    dev = torch.device("cuda")
+    _reset_mem()
+    params = arch.init_params(torch.Generator("cuda").manual_seed(0),
+                              "train_4k", dev)
+    n_params = count_params(params)
+    log(f"[lm] {LM_ARCH}: {n_params} params, {cfg.n_layers} L, d "
+        f"{cfg.d_model}, {cfg.n_heads} H / kv {cfg.n_kv_heads}, vocab "
+        f"{cfg.vocab}, {cfg.param_dtype} params, {cfg.compute_dtype} "
+        f"compute, remat {cfg.remat}")
+    batches = _lm_batches(0, cfg.vocab, LM_BATCH, LM_SEQ, dev)
+    first = next(batches)
+
+    # step 1 at bf16 vs fp32 compute: loss and gradient global norm
+    cfg32 = dataclasses.replace(cfg, compute_dtype=torch.float32)
+    got = {}
+    for name, c in (("bf16", cfg), ("fp32", cfg32)):
+        loss, grads = value_and_grad(
+            lambda p, b, c=c: tf.lm_loss(p, b, c))(params, first)
+        got[name] = (float(loss), float(global_norm(grads)))
+        del grads
+    for i, what in enumerate(("loss", "grad norm")):
+        rel = abs(got["bf16"][i] - got["fp32"][i]) / abs(got["fp32"][i])
+        if not rel <= LM_STEP1_RTOL:
+            raise AssertionError(f"step 1 {what} bf16 {got['bf16'][i]} vs "
+                                 f"fp32 {got['fp32'][i]}: rel {rel:.3g}")
+        log(f"[lm] step 1 {what}: bf16 {got['bf16'][i]:.6f}, fp32 "
+            f"{got['fp32'][i]:.6f}, rel {rel:.3g} (<= {LM_STEP1_RTOL})")
+    log(f"[lm] step-1 checks peak {_mem_gb()}")
+
+    step, (abstract, _, abatch) = arch.make_step("train_4k")
+    opt = arch.optimizer()
+    _reset_mem()
+    p, state = params, opt.init(params)
+    losses, times = [], []
+    batch = first
+    for i in range(LM_STEPS):
+        t0 = time.perf_counter()
+        loss, p, state = step(p, state, batch)
+        losses.append(float(loss))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        batch = next(batches)
+    moved = _tree_max_diff(params, p)
+    if not all(map(math.isfinite, losses)) or moved <= 0:
+        raise AssertionError(f"train losses {losses}, params moved {moved}")
+    ms = 1e3 * statistics.median(times[1:])
+    log(f"[lm] train_4k step (batch {LM_BATCH}, cut from "
+        f"{tuple(abatch['tokens'].shape)[0]}; seq {LM_SEQ}): losses "
+        f"{[round(x, 4) for x in losses]}, params moved {moved:.3g}; "
+        f"first {1e3 * times[0]:.1f} ms, then median {ms:.1f} ms = "
+        f"{LM_BATCH * LM_SEQ / ms * 1e3:.0f} tokens/s; peak {_mem_gb()} "
+        f"({gpu})")
+    _lm_profile("[lm] train step profiled:", lambda: step(p, state, batch),
+                1e-3 * ms)
+    del state
+
+    _reset_mem()
+    path = os.path.join(ROOT, "build", "lm_ckpt.npz")
+    t0 = time.perf_counter()
+    lp, lstate, llosses = train_loop.train(
+        arch.loss_fn("train_4k"), p, batches, LM_LOOP_STEPS, opt=opt,
+        grad_accum=2, checkpoint_path=path, checkpoint_every=1,
+        log_every=1, log=lambda m: log(f"  {m}"))
+    loop_s = time.perf_counter() - t0
+    back, at = checkpoint.restore(path, (lp, lstate))
+    same = all(torch.equal(a, b) for a, b in
+               zip(tree_leaves((lp, lstate)), tree_leaves(back)))
+    if at != LM_LOOP_STEPS or not same or \
+            not all(map(math.isfinite, llosses)):
+        raise AssertionError(f"train loop: step {at}, restored equal "
+                             f"{same}, losses {llosses}")
+    for f in (path, path + ".meta.json"):
+        os.unlink(f)
+    log(f"[lm] train loop: {LM_LOOP_STEPS} steps, grad_accum 2, async "
+        f"checkpoint each step: losses {llosses}, {loop_s:.2f} s with the "
+        f"checkpoints; restored bit-equal at step {at}; peak {_mem_gb()}")
+    del lp, lstate, back, p
+
+    prefill, _ = arch.make_step("prefill_32k")
+    toks = next(_lm_batches(1, cfg.vocab, 1, LM_PREFILL_SEQ, dev))["tokens"]
+    _reset_mem()
+    with torch.no_grad():
+        t0 = time.perf_counter()
+        logits = prefill(params, toks)
+        torch.cuda.synchronize()
+        pre_ms = 1e3 * (time.perf_counter() - t0)
+    if tuple(logits.shape) != (1, 1, cfg.vocab) or \
+            not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"prefill logits {tuple(logits.shape)}")
+    log(f"[lm] prefill (batch 1, cut from 32; seq {LM_PREFILL_SEQ}): "
+        f"{pre_ms:.1f} ms, finite [1, 1, {cfg.vocab}] logits; peak "
+        f"{_mem_gb()} ({gpu})")
+
+    decode, _ = arch.make_step("decode_32k")
+    _reset_mem()
+    cache = tf.init_cache(cfg, LM_DECODE_BATCH, LM_PREFILL_SEQ, device=dev)
+    tok = toks[0, :LM_DECODE_BATCH].reshape(LM_DECODE_BATCH, 1)
+    times = []
+    with torch.no_grad():
+        for _ in range(LM_DECODE_TOKENS):
+            t0 = time.perf_counter()
+            logits, cache = decode(params, cache, tok)
+            tok = logits.argmax(-1).to(torch.int32)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+    if not bool(torch.isfinite(logits).all()) or \
+            cache["len"].tolist() != [LM_DECODE_TOKENS] * LM_DECODE_BATCH:
+        raise AssertionError("decode: non-finite logits or cache length")
+    log(f"[lm] decode (batch {LM_DECODE_BATCH}, cut from 128; "
+        f"{LM_PREFILL_SEQ}-slot bf16 cache): {LM_DECODE_TOKENS} tokens, "
+        f"median {1e3 * statistics.median(times[1:]):.2f} ms a token "
+        f"(first {1e3 * times[0]:.1f}); peak {_mem_gb()} ({gpu})")
+    with torch.no_grad():
+        _lm_profile("[lm] decode token profiled:",
+                    lambda: decode(params, cache, tok),
+                    statistics.median(times[1:]))
+    del cache
+
+    _reset_mem()
+    toks = next(_lm_batches(2, cfg.vocab, 2, LM_DECODE_CHECK, dev))["tokens"]
+    err = decode_vs_forward(params, toks, cfg32)
+    log(f"[lm] decode == forward + logits_fn at fp32, batch 2, "
+        f"{LM_DECODE_CHECK} tokens: max |diff| {err:.3g} (<= 2e-4)")
+
+
+def _moe_loop_ref(mp, xf, cfg):
+    """A per-expert loop over the same router: the routes to expert e in
+    token-major, k-minor order, the first ``cap`` kept; returns (out,
+    dropped routes)."""
+    import math
+
+    import torch
+    import torch.nn.functional as F
+
+    n = xf.shape[0]
+    cap = max(1, math.ceil(n * cfg.top_k / cfg.n_experts
+                           * cfg.capacity_factor))
+    probs = torch.softmax(
+        torch.einsum("nd,de->ne", xf.float(), mp["wr"].float()), -1)
+    gate, idx = torch.topk(probs, cfg.top_k, dim=-1)
+    gate = gate / gate.sum(-1, keepdim=True).clamp(min=1e-9)
+    out = torch.zeros_like(xf)
+    dropped = 0
+    for e in range(cfg.n_experts):
+        routes = (idx == e).nonzero()
+        dropped += max(0, routes.shape[0] - cap)
+        tok, kpos = routes[:cap, 0], routes[:cap, 1]
+        x = xf[tok]
+        h = F.silu(x @ mp["wg"][e]) * (x @ mp["wi"][e])
+        out.index_add_(0, tok, (h @ mp["wo"][e]) * gate[tok, kpos][:, None])
+    return out, dropped
+
+
+def _lm_olmoe(gpu: str) -> None:
+    """olmoe-1b-7b at full width: one MoE layer (fp32) against the loop
+    reference, then the whole model's prefill."""
+    import torch
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.models.common import count_params
+    from repro_torch.models.moe import moe_ffn, moe_route
+
+    arch = get_arch(MOE_ARCH)
+    cfg, mcfg = arch.cfg, arch.cfg.moe
+    d, e, f = cfg.d_model, mcfg.n_experts, mcfg.d_ff
+    g = torch.Generator("cuda").manual_seed(5)
+
+    def w(*shape):
+        return torch.randn(*shape, generator=g, device="cuda") * d ** -0.5
+    mp = {"wr": w(d, e), "wi": w(e, d, f), "wg": w(e, d, f),
+          "wo": w(e, f, d)}
+    x = torch.randn(1, MOE_TOKENS, d, generator=g, device="cuda")
+    _reset_mem()
+    with torch.no_grad():
+        out, aux = moe_ffn(mp, x, mcfg)
+        keep = moe_route(mp, x.reshape(-1, d), mcfg)[3]
+        torch.cuda.synchronize()
+        ms, _ = _time_ms(lambda: moe_ffn(mp, x, mcfg), reps=5, rounds=3)
+        ref, dropped = _moe_loop_ref(mp, x.reshape(-1, d), mcfg)
+    err = float((out.reshape(-1, d) - ref).abs().max())
+    ours_dropped = int((~keep).sum())
+    if not err <= MOE_TOL or ours_dropped != dropped:
+        raise AssertionError(f"moe_ffn vs the loop: max |diff| {err}, "
+                             f"dropped {ours_dropped} vs {dropped}")
+    log(f"[lm] {MOE_ARCH} moe_ffn, {MOE_TOKENS} tokens, {e} experts top-"
+        f"{mcfg.top_k}, d {d}, expert d_ff {f}, fp32: == per-expert loop "
+        f"within {err:.3g} (<= {MOE_TOL}); {dropped} of "
+        f"{MOE_TOKENS * mcfg.top_k} routes dropped by both; aux "
+        f"{float(aux):.4f}; {ms:.3f} ms a layer; peak {_mem_gb()} ({gpu})")
+    del mp, x, out, ref
+
+    _reset_mem()
+    t0 = time.perf_counter()
+    params = arch.init_params(torch.Generator("cuda").manual_seed(0),
+                              "prefill_32k", torch.device("cuda"))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    prefill, _ = arch.make_step("prefill_32k")
+    toks = next(_lm_batches(3, cfg.vocab, 1, MOE_PREFILL_SEQ,
+                            "cuda"))["tokens"]
+    with torch.no_grad():
+        t0 = time.perf_counter()
+        logits = prefill(params, toks)
+        torch.cuda.synchronize()
+        pre_ms = 1e3 * (time.perf_counter() - t0)
+    if tuple(logits.shape) != (1, 1, cfg.vocab) or \
+            not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"{MOE_ARCH} prefill logits")
+    log(f"[lm] {MOE_ARCH} prefill, full depth ({cfg.n_layers} L) and "
+        f"width, {count_params(params)} fp32 params (init {init_s:.2f} s), "
+        f"batch 1, seq {MOE_PREFILL_SEQ}: {pre_ms:.1f} ms, finite logits; "
+        f"peak {_mem_gb()} ({gpu})")
+    del params
+
+
+def _lm_smoke_configs() -> None:
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    from torch_lm_checks import BF16_RTOL, FP32_TOL, smoke_step_vs_cpu
+
+    for arch_id in LM_IDS:
+        e = smoke_step_vs_cpu(arch_id)
+        log(f"[lm] smoke {arch_id}: cuda vs cpu, bf16 loss "
+            f"{e['loss_cuda']:.6f} / {e['loss_cpu']:.6f} (rel "
+            f"{e['bf16_loss_rel']:.3g} <= {BF16_RTOL}); fp32 max |diff| "
+            f"loss {e['fp32_loss']:.3g}, grads {e['fp32_grads']:.3g}, "
+            f"update on the same grads {e['fp32_update']:.3g} "
+            f"(<= {FP32_TOL})")
+
+
+def _lm_launcher() -> None:
+    env = dict(os.environ)
+    env["PYTHONPATH"] = SRC + (os.pathsep + env["PYTHONPATH"]
+                               if env.get("PYTHONPATH") else "")
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+         LM_ARCH, "--steps", str(LM_LAUNCH_STEPS), "--device", "cuda"],
+        env=env, cwd=ROOT, capture_output=True, text=True, timeout=600)
+    last = proc.stdout.strip().splitlines()[-1] if proc.stdout else ""
+    if proc.returncode != 0 or "first-10 mean loss" not in last:
+        raise AssertionError(f"launch.train failed ({proc.returncode}):\n"
+                             f"{proc.stderr[-4000:]}")
+    first, final = (float(w) for w in last.split() if
+                    w.replace(".", "", 1).isdigit())
+    if not final < first:
+        raise AssertionError(f"launch.train did not learn: {last}")
+    log(f"  {last}")
+    log(f"[launcher] train --arch {LM_ARCH} --steps {LM_LAUNCH_STEPS} on "
+        f"cuda in {time.perf_counter() - t0:.2f}s")
+
+
+def phase_lm() -> None:
+    """Phase 11: the LM family on the card (no TPU kernel on this path:
+    its products are plain matmuls, as in the JAX package)."""
+    import torch
+
+    # fp32 products in full fp32 on the card, for every comparison here
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    gpu = _gpu_line()
+    _lm_attention(gpu)
+    _lm_smollm(gpu)
+    _lm_olmoe(gpu)
+    _lm_smoke_configs()
+    _lm_launcher()
+    log(f"[lm] phase 11 wall {time.perf_counter() - t0:.1f}s ({gpu})")
+
+
 def main() -> int:
     import torch
 
@@ -2011,6 +2417,7 @@ def main() -> int:
     stream = phase_streaming(setup)
     phase_cluster(setup, stream)
     dist_errs = phase_multi_rank(res, setup)
+    phase_lm()
 
     for k in kernels:
         k["max_abs_err"] = max(k["max_abs_err"], dist_errs.get(k["name"], 0))

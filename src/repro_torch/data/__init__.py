@@ -1,1 +1,1 @@
-"""Synthetic graph-sequence databases."""
+"""Synthetic data: graph-sequence databases and LM token streams."""

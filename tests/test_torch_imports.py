@@ -17,7 +17,8 @@ PORT_FILES = sorted(
     glob.glob(os.path.join(SRC, "repro_torch", "**", "*.py"), recursive=True)
 ) + [os.path.join(ROOT, "chip_smoke.py")] + [
     os.path.join(ROOT, "tests", name) for name in
-    ("torch_dist_worker.py", "test_torch_distributed_cuda.py")]
+    ("torch_dist_worker.py", "test_torch_distributed_cuda.py",
+     "test_torch_models_cuda.py", "torch_lm_checks.py")]
 # JAX package module -> the port's counterpart, held name for name
 SURFACES = {
     "repro.serving": "repro_torch.serving",
@@ -26,6 +27,28 @@ SURFACES = {
     "repro.mining.distributed": "repro_torch.mining.distributed",
     "repro.serving.sharded": "repro_torch.serving.sharded",
     "repro.launch.mesh": "repro_torch.launch.mesh",
+    "repro.models.layers": "repro_torch.models.layers",
+    "repro.models.attention": "repro_torch.models.attention",
+    "repro.models.moe": "repro_torch.models.moe",
+    "repro.models.transformer": "repro_torch.models.transformer",
+    "repro.models.common": "repro_torch.models.common",
+    "repro.training.optimizer": "repro_torch.training.optimizer",
+    "repro.training.checkpoint": "repro_torch.training.checkpoint",
+    "repro.training.train_loop": "repro_torch.training.train_loop",
+    "repro.data.lm": "repro_torch.data.lm",
+    "repro.configs.base": "repro_torch.configs.base",
+    "repro.configs.families": "repro_torch.configs.families",
+    "repro.configs.registry": "repro_torch.configs.registry",
+}
+# Names of a mirrored module that later slices of the port bring, and
+# nothing else: the GNN / MACE / recsys archs (slice 8), the sharding
+# helpers of the dry-run (slice 9).
+LATER_SLICES = {
+    "repro.models.common": {"Rules", "dp_axes", "resolve_template",
+                            "tree_param_specs", "guard_tree_specs",
+                            "tree_shardings"},
+    "repro.configs.base": {"resolve_batch", "opt_state_specs"},
+    "repro.configs.families": {"GNNArch", "MACEArch", "RecsysArch"},
 }
 
 
@@ -44,7 +67,9 @@ def test_import_leaves_jax_and_repro_unloaded():
         "repro_torch.serving.router, repro_torch.serving.cluster, "
         "repro_torch.serving.sharded, repro_torch.mining.distributed, "
         "repro_torch.launch.mesh, repro_torch.obs, "
-        "repro_torch.launch.serve\n"
+        "repro_torch.launch.serve, repro_torch.launch.train, "
+        "repro_torch.configs.registry, repro_torch.models.convert, "
+        "repro_torch.training.train_loop\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro'))\n"
         "print(bad)\n"
@@ -93,15 +118,20 @@ def _public_names(module: str):
 @pytest.mark.parametrize("module", sorted(SURFACES))
 def test_port_mirrors_public_surface(module):
     """``from <port counterpart> import X`` works for every public X of
-    the JAX module, none excused."""
+    the JAX module but those listed in ``LATER_SLICES``, and none of
+    those exists yet (the list stays exact)."""
+    later = LATER_SLICES.get(module, set())
     names = _public_names(module)
     assert names, module
+    assert later <= set(names), later - set(names)
+    names = [n for n in names if n not in later]
     code = (
         "import importlib, sys\n"
         f"mod = importlib.import_module({SURFACES[module]!r})\n"
         f"missing = [n for n in {names!r} if not hasattr(mod, n)]\n"
-        "print(missing)\n"
-        "sys.exit(1 if missing else 0)\n"
+        f"early = [n for n in {sorted(later)!r} if hasattr(mod, n)]\n"
+        "print(missing, early)\n"
+        "sys.exit(1 if missing or early else 0)\n"
     )
     env = dict(os.environ, PYTHONPATH=SRC)
     proc = subprocess.run([sys.executable, "-c", code], env=env,
