@@ -107,7 +107,29 @@ line) on any failure:
    five LM smoke configs' train step on cuda is held to the CPU's; the
    train launcher on cuda learns in 100 steps; an attention yardstick
    (blockwise vs ``scaled_dot_product_attention``) is printed only;
-12. one JSON line describing every ported kernel, then the last line
+12. the GNN, MACE and recsys families (``repro_torch.models.{gnn,mace,
+   bert4rec,embedding}``; no TPU kernel lies on their code), fp32
+   products in full fp32, each item's wall and peak memory printed:
+   gcn-cora and gat-cora at Cora's size (2,708 nodes, 23,820 edges,
+   1,433 features) take 3 train steps, step 1's loss and grads within
+   1e-4 of the CPU, one gat-cora step profiled; gcn-cora at
+   minibatch_lg: a Reddit-scale graph (232,965 nodes, 114,615,892
+   edges) built on the host while the card works, one sampled block of
+   1024 seeds padded to 180,224 nodes and 538,624 edges (the edge_mask
+   path); gin-tu on 128 molecules; mace on 128 molecules and on one of
+   180,224 atoms and 538,624 edges (profiled), its energy invariant
+   under a rotation and translation; bert4rec at its full catalog
+   (1,048,574 items) takes train steps at batch 8192 (profiled; step 1
+   held to the CPU at 64 rows) and serves serve_p99 (512),
+   retrieval_cand (1) and serve_bulk (16,384), the top-k ids held to
+   brute force; the recsys integration path of
+   ``examples/recsys_patterns.py`` (``tests/torch_family_checks.py``)
+   mines on cuda, serves under all three layouts, pools with
+   ``embedding_bag`` and scores the full catalog, its match_count,
+   contain_step and trie_walk launches (zeroed just before) equal to
+   its device calls; the five family smoke steps on cuda are held to
+   the CPU's;
+13. one JSON line describing every ported kernel, then the last line
    ``{"ok": true, "device": {...}}``.
 
 It needs a CUDA device and the repository around it: without either it
@@ -2384,6 +2406,360 @@ def phase_lm() -> None:
     log(f"[lm] phase 11 wall {time.perf_counter() - t0:.1f}s ({gpu})")
 
 
+# phase 12, the GNN / MACE / recsys families at full width: GNN_STEPS
+# train steps an item; bert4rec's train_batch cut in batch from 65,536
+# (B4R_TRAIN), serve_bulk from 262,144 (B4R_BULK), the CPU reference of
+# its train step at B4R_CPU rows; serve timings over B4R_SERVE_REPS calls
+GNN_STEPS = 3
+B4R_TRAIN, B4R_BULK, B4R_CPU, B4R_SERVE_REPS = 8192, 16384, 64, 10
+
+
+def _fam_train(tag, arch, shape, params, batch, gpu, profile=False):
+    """``GNN_STEPS`` steps of the arch's train step (value and grad, clip
+    1.0, its optimizer): finite losses, params moved; prints the
+    median wall of the steps after the first and the peak memory."""
+    import torch
+
+    step, _ = arch.make_step(shape)
+    p, state = params, arch.optimizer().init(params)
+    losses, times = [], []
+    for _ in range(GNN_STEPS):
+        t0 = time.perf_counter()
+        loss, p, state = step(p, state, batch)
+        losses.append(float(loss))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    moved = _tree_max_diff(params, p)
+    if not all(map(math.isfinite, losses)) or moved <= 0:
+        raise AssertionError(f"{tag}: losses {losses}, params moved {moved}")
+    ms = 1e3 * statistics.median(times[1:])
+    log(f"[family] {tag}: {GNN_STEPS} train steps, losses "
+        f"{[round(x, 5) for x in losses]}, params moved {moved:.3g}; first "
+        f"{1e3 * times[0]:.2f} ms, then median {ms:.3f} ms a step; peak "
+        f"{_mem_gb()} ({gpu})")
+    if profile:
+        _lm_profile(f"[family] {tag} step profiled:",
+                    lambda: step(p, state, batch), 1e-3 * ms)
+    return p
+
+
+def _fam_vs_cpu(tag, loss_fn, params, batch) -> None:
+    """Step 1's loss and grads on the card within ``STEP_TOL`` of the
+    same on the CPU."""
+    from torch_family_checks import STEP_TOL, step_vs_cpu
+
+    e = step_vs_cpu(loss_fn, params, batch)
+    log(f"[family] {tag}: step-1 loss {e['loss']:.6f}; vs the CPU max "
+        f"|diff| / the leaf's scale: loss {e['loss_err']:.3g}, grads "
+        f"{e['grads_err']:.3g} (<= {STEP_TOL})")
+
+
+def _sage_block(arch):
+    """gcn-cora's minibatch_lg input on the host: a Reddit-scale
+    ``random_node_graph`` (seed 0), its ``CSRGraph``, one layer-wise
+    sample of the shape's seeds and fanouts, padded by ``pad_block`` to
+    the shape's static sizes.  Returns (batch, seconds by stage, block
+    sizes)."""
+    import numpy as np
+    from repro_torch.data.graphs import CSRGraph, pad_block, \
+        random_node_graph, sample_blocks
+
+    m = arch.shapes["minibatch_lg"].meta
+    pad_e = arch.batch_abstract("minibatch_lg")["edges"].shape[1]
+    rng = np.random.default_rng(0)
+    t0 = time.perf_counter()
+    g = random_node_graph(rng, m["n_nodes"], m["n_edges"], m["d_feat"],
+                          m["n_classes"])
+    t1 = time.perf_counter()
+    csr = CSRGraph(m["n_nodes"], g["edges"][0], g["edges"][1])
+    t2 = time.perf_counter()
+    seeds = rng.choice(m["n_nodes"], m["batch_nodes"], replace=False)
+    blk = sample_blocks(csr, rng, seeds, m["fanout"], g["x"], g["labels"])
+    t3 = time.perf_counter()
+    batch = pad_block(blk, m["pad_nodes"], pad_e)
+    t4 = time.perf_counter()
+    sizes = (blk["x"].shape[0], blk["edges"].shape[1], g["edges"].shape[1])
+    return batch, (t1 - t0, t2 - t1, t3 - t2, t4 - t3), sizes
+
+
+def _fam_gnn(gpu, sage) -> None:
+    """gcn-cora and gat-cora on a Cora-size graph, gcn-cora on the
+    sampled Reddit-scale block (edge_mask), gin-tu on 128 molecules."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.data.graphs import random_molecule_batch, \
+        random_node_graph
+
+    dev = torch.device("cuda")
+
+    def on_card(b):
+        return {k: torch.as_tensor(v, device=dev) for k, v in b.items()}
+
+    for arch_id in ("gcn-cora", "gat-cora"):
+        arch = get_arch(arch_id)
+        m = arch.shapes["full_graph_sm"].meta
+        _reset_mem()
+        t0 = time.perf_counter()
+        g = random_node_graph(np.random.default_rng(0), m["n_nodes"],
+                              m["n_edges"], m["d_feat"], m["n_classes"])
+        batch = on_card(g)
+        params = arch.init_params(torch.Generator("cuda").manual_seed(0),
+                                  "full_graph_sm", dev)
+        log(f"[family] {arch_id} full_graph_sm: {m['n_nodes']} nodes, "
+            f"{g['edges'].shape[1]} edges (both directions + self loops), "
+            f"{m['d_feat']} features, {m['n_classes']} classes")
+        _fam_vs_cpu(arch_id, arch.loss_fn("full_graph_sm"), params, batch)
+        _fam_train(f"{arch_id} full_graph_sm", arch, "full_graph_sm",
+                   params, batch, gpu, profile=arch_id == "gat-cora")
+        log(f"[family] {arch_id} full_graph_sm wall "
+            f"{time.perf_counter() - t0:.2f}s")
+
+    arch = get_arch("gcn-cora")
+    m = arch.shapes["minibatch_lg"].meta
+    t0 = time.perf_counter()
+    block, secs, (nn_, ne_, e_full) = sage.result()
+    log(f"[family] gcn-cora minibatch_lg host: {m['n_nodes']} nodes, "
+        f"{e_full} edges ({m['n_edges']} both directions + self loops), "
+        f"{m['d_feat']} features; graph {secs[0]:.2f}s, CSR "
+        f"{secs[1]:.2f}s, sample of {m['batch_nodes']} seeds fanouts "
+        f"{m['fanout']} {secs[2]:.2f}s ({nn_} nodes, {ne_} edges), pad to "
+        f"{block['x'].shape[0]} nodes / {block['edges'].shape[1]} edges "
+        f"{secs[3]:.2f}s (waited {time.perf_counter() - t0:.2f}s)")
+    _reset_mem()
+    t0 = time.perf_counter()
+    batch = on_card(block)
+    params = arch.init_params(torch.Generator("cuda").manual_seed(0),
+                              "minibatch_lg", dev)
+    _fam_train("gcn-cora minibatch_lg (edge_mask)", arch, "minibatch_lg",
+               params, batch, gpu)
+    log(f"[family] gcn-cora minibatch_lg wall "
+        f"{time.perf_counter() - t0:.2f}s")
+    del batch, block
+
+    arch = get_arch("gin-tu")
+    m = arch.shapes["molecule"].meta
+    _reset_mem()
+    t0 = time.perf_counter()
+    g = random_molecule_batch(np.random.default_rng(0), m["batch"],
+                              m["n_nodes"], m["n_edges"])
+    batch = on_card({k: g[k] for k in ("x", "edges", "graph_id",
+                                       "graph_labels")})
+    params = arch.init_params(torch.Generator("cuda").manual_seed(0),
+                              "molecule", dev)
+    _fam_vs_cpu("gin-tu molecule", arch.loss_fn("molecule"), params, batch)
+    _fam_train("gin-tu molecule", arch, "molecule", params, batch, gpu)
+    log(f"[family] gin-tu molecule ({m['batch']} graphs x {m['n_nodes']} "
+        f"nodes x {m['n_edges']} edges) wall "
+        f"{time.perf_counter() - t0:.2f}s")
+
+
+def _fam_mace(gpu) -> None:
+    """mace at molecule (128 graphs) and at minibatch_lg's sizes (one
+    molecule of 180,224 atoms): train steps, and the energy invariant
+    under a rotation and translation."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.data.graphs import random_molecule_batch
+    from repro_torch.models import mace
+    from torch_family_checks import rotation_invariance
+
+    arch = get_arch("mace")
+    cfg = arch.cfg
+    dev = torch.device("cuda")
+    for shape in ("molecule", "minibatch_lg"):
+        n, e, n_graphs = arch._sizes(shape)
+        _reset_mem()
+        t0 = time.perf_counter()
+        g = random_molecule_batch(np.random.default_rng(0), n_graphs,
+                                  n // n_graphs, e // (2 * n_graphs))
+        batch = {k: torch.as_tensor(g[k], device=dev) for k in
+                 ("species", "pos", "edges", "graph_id", "targets")}
+        host_s = time.perf_counter() - t0
+        params = arch.init_params(torch.Generator("cuda").manual_seed(0),
+                                  shape, dev)
+        log(f"[family] mace {shape}: {n_graphs} graphs, {n} atoms, "
+            f"{batch['edges'].shape[1]} edges (host {host_s:.2f}s); d "
+            f"{cfg.d_hidden}, {cfg.n_layers} layers, l_max {cfg.l_max}, "
+            f"correlation {cfg.correlation}, {cfg.n_rbf} RBFs")
+        if shape == "molecule":
+            _fam_vs_cpu("mace molecule", arch.loss_fn(shape), params, batch)
+        _fam_train(f"mace {shape}", arch, shape, params, batch, gpu,
+                   profile=shape == "minibatch_lg")
+        err = rotation_invariance(
+            lambda p, b: mace.forward(p, dict(b, n_graphs=n_graphs), cfg),
+            params, batch)
+        log(f"[family] mace {shape}: energy under a rotation and "
+            f"translation: max |diff| {err:.3g}; wall "
+            f"{time.perf_counter() - t0:.2f}s")
+        del batch
+
+
+def _b4r_serve(tag, arch, shape, params, seq, gpu) -> None:
+    """The arch's serve step on ``seq``: median and largest wall of
+    ``B4R_SERVE_REPS`` calls (after one), the ids held to brute force
+    over the catalog on the card."""
+    import torch
+    from repro_torch.models import bert4rec as b4r
+    from torch_family_checks import topk_vs_bruteforce
+
+    cfg = arch.cfg
+    serve, _ = arch.make_serve_step(shape)
+    batch = {"seq": seq}
+    reps = B4R_SERVE_REPS if seq.shape[0] <= 512 else 2
+    _reset_mem()
+    times = []
+    with torch.no_grad():
+        for _ in range(reps + 1):
+            t0 = time.perf_counter()
+            scores, ids = serve(params, batch)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        peak = _mem_gb()
+        hidden = b4r.encode(params, seq, cfg)
+        lengths = (seq > 0).sum(-1)
+        query = hidden[torch.arange(seq.shape[0], device=seq.device),
+                       (lengths - 1).clamp(min=0)]
+        del hidden
+    if tuple(ids.shape) != (seq.shape[0], cfg.topk) or \
+            not bool(torch.isfinite(scores).all()):
+        raise AssertionError(f"{tag}: ids {tuple(ids.shape)}")
+    held = topk_vs_bruteforce(params["item_emb"], query, ids, cfg)
+    ms = [1e3 * t for t in times[1:]]
+    log(f"[family] bert4rec {tag} (batch {seq.shape[0]}, {cfg.n_items} "
+        f"items, top-{cfg.topk} over chunks of {cfg.v_chunk}): first "
+        f"{1e3 * times[0]:.2f} ms, then median {statistics.median(ms):.3f} "
+        f"ms, max {max(ms):.3f} ms over {reps}; ids == brute force on "
+        f"{held} of {seq.shape[0]} rows (the rest within a 1e-5 tie); peak "
+        f"{peak} ({gpu})")
+
+
+def _fam_bert4rec(gpu):
+    """bert4rec at its full config: train steps at a cut batch (step 1
+    held to the CPU at ``B4R_CPU`` rows), serve_p99, retrieval_cand and
+    a cut serve_bulk; returns the params for the integration path."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.data.recsys import session_batches
+    from repro_torch.models.common import count_params
+
+    arch = get_arch("bert4rec")
+    cfg = arch.cfg
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    params = arch.init_params(torch.Generator("cuda").manual_seed(0),
+                              "train_batch", dev)
+    log(f"[family] bert4rec: {count_params(params)} params ({cfg.n_items} "
+        f"items, item_emb {tuple(params['item_emb'].shape)}), d "
+        f"{cfg.d_model}, {cfg.n_blocks} blocks, {cfg.n_heads} heads, seq "
+        f"{cfg.seq_len}, {cfg.n_masked} masked, {cfg.n_negatives} "
+        f"negatives")
+
+    def sessions(seed, b):
+        return next(session_batches(seed, cfg.n_items, b, cfg.seq_len,
+                                    cfg.n_masked, cfg.mask_id,
+                                    cfg.n_negatives))
+
+    def on_card(b):
+        return {k: torch.as_tensor(v, device=dev) for k, v in b.items()}
+
+    _fam_vs_cpu(f"bert4rec train_batch at {B4R_CPU} rows",
+                arch.loss_fn("train_batch"), params,
+                on_card(sessions(1, B4R_CPU)))
+    _reset_mem()
+    t1 = time.perf_counter()
+    batch = on_card(sessions(0, B4R_TRAIN))
+    log(f"[family] bert4rec train_batch (batch {B4R_TRAIN}, cut from "
+        f"{arch.shapes['train_batch'].meta['batch']}): host batch "
+        f"{time.perf_counter() - t1:.2f}s")
+    _fam_train(f"bert4rec train_batch {B4R_TRAIN}", arch, "train_batch",
+               params, batch, gpu, profile=True)
+    del batch
+
+    def serve_seqs(seed, b):
+        # the sessions without their MASK tokens
+        s = sessions(seed, b)
+        seq = s["seq"].copy()
+        np.put_along_axis(seq, s["masked_pos"], s["masked_ids"], 1)
+        return torch.as_tensor(seq, device=dev)
+
+    for tag, seed, b in (("serve_p99", 2, 512), ("retrieval_cand", 3, 1),
+                         ("serve_bulk", 4, B4R_BULK)):
+        full = arch.shapes[tag].meta["batch"]
+        cut = f"{tag}, cut from {full}" if b < full else tag
+        _b4r_serve(cut, arch, tag, params, serve_seqs(seed, b), gpu)
+    log(f"[family] bert4rec wall {time.perf_counter() - t0:.2f}s")
+    return params
+
+
+def _fam_integration(params, gpu) -> None:
+    """examples/recsys_patterns.py's chain on the card at the full
+    catalog: mine the sessions, serve the top-8 bank under every
+    layout, EmbeddingBag, BERT4Rec's chunked top-k; the launch counts,
+    zeroed just before and read just after, equal the device calls."""
+    import torch
+    from repro_torch.configs.registry import get_arch
+    from torch_family_checks import recsys_integration, topk_vs_bruteforce
+
+    cfg = get_arch("bert4rec").cfg
+    table = 0.1 * torch.randn(8, cfg.d_model, device="cuda",
+                              generator=torch.Generator("cuda").manual_seed(1))
+    _reset_mem()
+    t0 = time.perf_counter()
+    _zero_counts()
+    got = recsys_integration(params, table, cfg, "cuda", layouts=LAYOUTS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = _counts()
+    counts["match_count"][1] = got["device_calls"]
+    _check_counts("[family] integration path", counts,
+                  ("match_count", "contain_step", "trie_walk"))
+    held = topk_vs_bruteforce(params["item_emb"], got["query"], got["ids"],
+                              cfg)
+    f = got["feats"]
+    log(f"[family] integration path (examples/recsys_patterns.py, 60 "
+        f"sessions, sigma 12, max_len 4) on cuda: "
+        f"{len(got['res'].patterns)} rFTSs, top-{got['bank'].n_patterns} "
+        f"bank, features {f.shape} density {f.mean():.4f} equal under "
+        f"{', '.join(LAYOUTS)} and to the host oracle; EmbeddingBag mean; "
+        f"top-{cfg.topk} over {cfg.n_items} items == brute force on {held} "
+        f"of {f.shape[0]} rows; wall {wall:.2f}s; peak {_mem_gb()} ({gpu})")
+
+
+def phase_families() -> None:
+    """Phase 12: the GNN, MACE and recsys families on the card (no TPU
+    kernel lies on their code; the integration path runs all three)."""
+    import torch
+    from repro_torch.configs.registry import get_arch
+
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    from torch_family_checks import FAMILY_IDS, SMOKE_GRAD_TOL, \
+        SMOKE_UPDATE_TOL, family_smoke_vs_cpu
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    gpu = _gpu_line()
+    with ThreadPoolExecutor(1) as pool:
+        # the Reddit-scale graph is built on the host meanwhile
+        sage = pool.submit(_sage_block, get_arch("gcn-cora"))
+        _fam_mace(gpu)
+        params = _fam_bert4rec(gpu)
+        _fam_integration(params, gpu)
+        del params
+        _fam_gnn(gpu, sage)
+    for arch_id in FAMILY_IDS:
+        e = family_smoke_vs_cpu(arch_id)
+        log(f"[family] smoke {arch_id}: cuda vs cpu, loss "
+            f"{e['loss_cuda']:.6f} / {e['loss_cpu']:.6f}; max |diff| / the "
+            f"leaf's scale: loss {e['loss']:.3g}, grads {e['grads']:.3g} "
+            f"(<= {SMOKE_GRAD_TOL}); update on the same grads max |diff| "
+            f"{e['update']:.3g} (<= {SMOKE_UPDATE_TOL}, atol and rtol)")
+    log(f"[family] phase 12 wall {time.perf_counter() - t0:.1f}s ({gpu})")
+
+
 def main() -> int:
     import torch
 
@@ -2418,6 +2794,7 @@ def main() -> int:
     phase_cluster(setup, stream)
     dist_errs = phase_multi_rank(res, setup)
     phase_lm()
+    phase_families()
 
     for k in kernels:
         k["max_abs_err"] = max(k["max_abs_err"], dist_errs.get(k["name"], 0))

@@ -1,10 +1,10 @@
-"""Family adapters with the uniform Arch surface (see base.py): the LM
-family and the mining arch.  ``GNNArch``, ``MACEArch`` and
-``RecsysArch`` come with the GNN / MACE / recsys slice, and
-``param_rules`` / ``serve_spec_templates`` / ``batch_spec_templates``
-with the dry-run slice."""
+"""Family adapters with the uniform Arch surface (see base.py): LM / GNN
+/ MACE / RecSys / Mining archs.  ``param_rules`` /
+``serve_spec_templates`` / ``batch_spec_templates`` and the recsys
+serve over a device mesh come with the dry-run slice."""
 from __future__ import annotations
 
+import dataclasses
 import random
 from typing import Any, Callable
 
@@ -12,14 +12,58 @@ import numpy as np
 import torch
 
 from ..kernels import resolve_device
+from ..models import bert4rec as b4r
+from ..models import gnn as gnn_mod
+from ..models import mace as mace_mod
 from ..models import transformer as tf
 from ..models.common import tree_map, value_and_grad
 from ..training.optimizer import AdamW
-from .base import Arch, LM_SHAPES, MINING_SHAPES, _sds
+from .base import (
+    Arch,
+    GNN_SHAPES,
+    LM_SHAPES,
+    MINING_SHAPES,
+    RECSYS_SHAPES,
+    _sds,
+)
 
 PyTree = Any
 DATA = "DATA"
 MODEL = "MODEL"
+
+
+def _pad_mult(n: int, mult: int = 1024) -> int:
+    """Round edge counts up so every mesh factorization divides them
+    (the data pipeline pads edge lists with masked / (0,0)-self-loop
+    entries)."""
+    return -(-n // mult) * mult
+
+
+def _on(tree, device) -> PyTree:
+    """A numpy batch as tensors on ``device``; ints (``n_graphs``) stay."""
+    return {k: torch.as_tensor(v, device=device)
+            if isinstance(v, np.ndarray) else v for k, v in tree.items()}
+
+
+def _smoke_step(loss_fn, opt):
+    """One value-and-grad and optimizer update, as the JAX smoke steps;
+    the step carries its ``loss_fn``."""
+    vg = value_and_grad(loss_fn)
+
+    def step(params, opt_state, batch):
+        loss, grads = vg(params, batch)
+        params, opt_state = opt.update(grads, opt_state, params)
+        return loss, params, opt_state
+
+    step.loss_fn = loss_fn
+    return step
+
+
+def _smoke_params(init, cfg, device):
+    """``init(gen, cfg, cpu)`` from seed 0, moved to ``device``: every
+    device starts from the same values."""
+    params = init(torch.Generator().manual_seed(0), cfg, torch.device("cpu"))
+    return tree_map(lambda x: x.to(device), params)
 
 
 # =================================================================== LM
@@ -126,22 +170,284 @@ class LMArch(Arch):
         tokens come from numpy's seed 0."""
         device = resolve_device(device)
         cfg = self.smoke_cfg
-        gen = torch.Generator().manual_seed(0)
-        params = tf.init_params(gen, cfg, torch.device("cpu"))
-        params = tree_map(lambda x: x.to(device), params)
+        params = _smoke_params(tf.init_params, cfg, device)
         toks = np.random.default_rng(0).integers(0, cfg.vocab, (2, 32))
         toks = torch.as_tensor(toks, dtype=torch.int32, device=device)
         batch = {"tokens": toks, "targets": torch.roll(toks, -1, 1)}
         opt = AdamW(lr=1e-3)
-        opt_state = opt.init(params)
-        vg = value_and_grad(lambda p, b: tf.lm_loss(p, b, cfg))
+        step = _smoke_step(lambda p, b: tf.lm_loss(p, b, cfg), opt)
+        return step, (params, opt.init(params), batch)
 
-        def step(params, opt_state, batch):
-            loss, grads = vg(params, batch)
-            params, opt_state = opt.update(grads, opt_state, params)
-            return loss, params, opt_state
 
-        return step, (params, opt_state, batch)
+# ================================================================== GNN
+class GNNArch(Arch):
+    family = "gnn"
+    shapes = GNN_SHAPES
+
+    def __init__(self, name: str, kind: str, n_layers: int, d_hidden: int,
+                 n_heads: int = 1):
+        self.name = name
+        self.kind = kind
+        self.n_layers = n_layers
+        self.d_hidden = d_hidden
+        self.n_heads = n_heads
+
+    def _cfg(self, shape: str) -> gnn_mod.GNNConfig:
+        m = self.shapes[shape].meta
+        return gnn_mod.GNNConfig(
+            name=self.name, kind=self.kind, n_layers=self.n_layers,
+            d_in=m.get("d_feat", 16), d_hidden=self.d_hidden,
+            n_classes=m.get("n_classes", 2), n_heads=self.n_heads,
+        )
+
+    def abstract_params(self, shape: str) -> PyTree:
+        return gnn_mod.abstract_params(self._cfg(shape))
+
+    def init_params(self, gen, shape: str, device=None) -> PyTree:
+        return gnn_mod.init_params(gen, self._cfg(shape), device)
+
+    def optimizer(self) -> AdamW:
+        return AdamW(lr=1e-2, weight_decay=5e-4)
+
+    def batch_abstract(self, shape: str) -> PyTree:
+        m = self.shapes[shape].meta
+        task = m["task"]
+        if task == "node":
+            n, e = m["n_nodes"], m["n_edges"]
+            e_tot = _pad_mult(2 * e + n)  # both dirs + self loops, padded
+            return {
+                "x": _sds((n, m["d_feat"]), torch.float32),
+                "edges": _sds((2, e_tot), torch.int32),
+                "labels": _sds((n,), torch.int32),
+                "mask": _sds((n,), torch.float32),
+            }
+        if task == "node_sampled":
+            n, e = m["pad_nodes"], m["pad_edges"]
+            e_tot = _pad_mult(2 * e + n)
+            return {
+                "x": _sds((n, m["d_feat"]), torch.float32),
+                "edges": _sds((2, e_tot), torch.int32),
+                "labels": _sds((n,), torch.int32),
+                "mask": _sds((n,), torch.float32),
+                "edge_mask": _sds((e_tot,), torch.int32),
+            }
+        # molecule: batched small graphs
+        b, npg, epg = m["batch"], m["n_nodes"], m["n_edges"]
+        n = b * npg
+        e_tot = _pad_mult(2 * b * epg)
+        return {
+            "edges": _sds((2, e_tot), torch.int32),
+            "graph_id": _sds((n,), torch.int32),
+            "graph_labels": _sds((b,), torch.int32),
+            "x": _sds((n, m["d_feat"]), torch.float32),
+        }
+
+    def loss_fn(self, shape: str) -> Callable:
+        cfg = self._cfg(shape)
+        m = self.shapes[shape].meta
+        if m["task"] == "graph":
+            return lambda p, b: gnn_mod.graph_classification_loss(
+                p, {**b, "n_graphs": m["batch"]}, cfg
+            )
+        return lambda p, b: gnn_mod.node_classification_loss(p, b, cfg)
+
+    def model_flops(self, shape: str) -> float:
+        m = self.shapes[shape].meta
+        cfg = self._cfg(shape)
+        if m["task"] == "graph":
+            n = m["batch"] * m["n_nodes"]
+            e = 2 * m["batch"] * m["n_edges"]
+            d_in = 10
+        elif m["task"] == "node_sampled":
+            n, e = m["pad_nodes"], 2 * m["pad_edges"] + m["pad_nodes"]
+            d_in = m["d_feat"]
+        else:
+            n, e = m["n_nodes"], 2 * m["n_edges"] + m["n_nodes"]
+            d_in = m["d_feat"]
+        fl = 0.0
+        d_prev = d_in
+        for li in range(cfg.n_layers):
+            d_out = (cfg.n_classes if li == cfg.n_layers - 1
+                     else cfg.d_hidden)
+            heads = cfg.n_heads if cfg.kind == "gat" else 1
+            fl += 2.0 * n * d_prev * d_out * heads   # transform
+            fl += 2.0 * e * d_out * heads            # message agg
+            d_prev = d_out * (heads if cfg.kind == "gat"
+                              and li < cfg.n_layers - 1 else 1)
+        return 3.0 * fl  # fwd + bwd ~ 3x fwd for message passing
+
+    def smoke_bundle(self, device=None):
+        """One AdamW step of node classification on a 64-node random
+        graph (numpy seed 0; d_in 16, 4 classes, hidden 8) on ``device``
+        (default ``cuda``), from weights drawn on the CPU (seed 0)."""
+        from ..data.graphs import random_node_graph
+
+        device = resolve_device(device)
+        cfg = dataclasses.replace(
+            self._cfg("full_graph_sm"), d_in=16, n_classes=4, d_hidden=8
+        )
+        g = random_node_graph(np.random.default_rng(0), 64, 128, 16, 4)
+        params = _smoke_params(gnn_mod.init_params, cfg, device)
+        opt = self.optimizer()
+        step = _smoke_step(
+            lambda p, b: gnn_mod.node_classification_loss(p, b, cfg), opt)
+        return step, (params, opt.init(params), _on(g, device))
+
+
+# ================================================================= MACE
+class MACEArch(Arch):
+    family = "gnn"
+    shapes = GNN_SHAPES
+
+    def __init__(self, cfg: mace_mod.MACEConfig):
+        self.name = cfg.name
+        self.cfg = cfg
+
+    def abstract_params(self, shape: str) -> PyTree:
+        return mace_mod.abstract_params(self.cfg)
+
+    def init_params(self, gen, shape: str, device=None) -> PyTree:
+        return mace_mod.init_params(gen, self.cfg, device)
+
+    def optimizer(self) -> AdamW:
+        return AdamW(lr=1e-2)
+
+    def _sizes(self, shape: str):
+        m = self.shapes[shape].meta
+        if m["task"] == "graph":
+            return (m["batch"] * m["n_nodes"],
+                    _pad_mult(2 * m["batch"] * m["n_edges"]), m["batch"])
+        if m["task"] == "node_sampled":
+            return (m["pad_nodes"],
+                    _pad_mult(2 * m["pad_edges"] + m["pad_nodes"]), 1)
+        return (m["n_nodes"], _pad_mult(2 * m["n_edges"] + m["n_nodes"]), 1)
+
+    def batch_abstract(self, shape: str) -> PyTree:
+        n, e, g = self._sizes(shape)
+        return {
+            "species": _sds((n,), torch.int32),
+            "pos": _sds((n, 3), torch.float32),
+            "edges": _sds((2, e), torch.int32),
+            "graph_id": _sds((n,), torch.int32),
+            "targets": _sds((g,), torch.float32),
+        }
+
+    def loss_fn(self, shape: str) -> Callable:
+        cfg = self.cfg
+        g = self._sizes(shape)[2]
+        return lambda p, b: mace_mod.energy_loss(
+            p, {**b, "n_graphs": g}, cfg
+        )
+
+    def model_flops(self, shape: str) -> float:
+        n, e, _ = self._sizes(shape)
+        C = self.cfg.d_hidden
+        per_layer = (
+            2.0 * e * self.cfg.n_rbf * C + 2.0 * e * C * C  # radial MLP
+            + 2.0 * e * 9 * C                               # messages
+            + 2.0 * n * 9 * 3 * C * C                       # mix
+            + 2.0 * n * 9 * C * C                           # self
+        )
+        return 3.0 * self.cfg.n_layers * per_layer
+
+    def smoke_bundle(self, device=None):
+        """One AdamW step of the energy loss on 4 random molecules of 8
+        atoms and 16 edges (numpy seed 0; d_hidden 16, 2 layers) on
+        ``device`` (default ``cuda``), from weights drawn on the CPU
+        (seed 0)."""
+        from ..data.graphs import random_molecule_batch
+
+        device = resolve_device(device)
+        cfg = dataclasses.replace(self.cfg, d_hidden=16, n_layers=2)
+        g = random_molecule_batch(np.random.default_rng(0), 4, 8, 16)
+        batch = _on({k: v for k, v in g.items() if k in (
+            "species", "pos", "edges", "graph_id", "targets")}, device)
+        params = _smoke_params(mace_mod.init_params, cfg, device)
+        opt = self.optimizer()
+        step = _smoke_step(lambda p, b: mace_mod.energy_loss(
+            p, {**b, "n_graphs": 4}, cfg), opt)
+        return step, (params, opt.init(params), batch)
+
+
+# =============================================================== recsys
+class RecsysArch(Arch):
+    family = "recsys"
+    shapes = RECSYS_SHAPES
+
+    def __init__(self, cfg: b4r.Bert4RecConfig,
+                 smoke_cfg: b4r.Bert4RecConfig):
+        self.name = cfg.name
+        self.cfg = cfg
+        self.smoke_cfg = smoke_cfg
+
+    def abstract_params(self, shape: str) -> PyTree:
+        return b4r.abstract_params(self.cfg)
+
+    def init_params(self, gen, shape: str, device=None) -> PyTree:
+        return b4r.init_params(gen, self.cfg, device)
+
+    def batch_abstract(self, shape: str) -> PyTree:
+        m = self.shapes[shape].meta
+        cfg = self.cfg
+        if self.shapes[shape].kind == "train":
+            return {
+                "seq": _sds((m["batch"], cfg.seq_len), torch.int32),
+                "masked_pos": _sds((m["batch"], cfg.n_masked), torch.int32),
+                "masked_ids": _sds((m["batch"], cfg.n_masked), torch.int32),
+                "negatives": _sds((cfg.n_negatives,), torch.int32),
+            }
+        return {"seq": _sds((m["batch"], cfg.seq_len), torch.int32)}
+
+    def loss_fn(self, shape: str) -> Callable:
+        cfg = self.cfg
+        return lambda p, b: b4r.masked_item_loss(p, b, cfg)
+
+    def make_serve_step(self, shape: str, mesh=None):
+        """``serve_scores`` and its abstract (params, batch).  The serve
+        over a device mesh (each model rank scoring its vocab shard)
+        comes with the dry-run slice."""
+        if mesh is not None:
+            raise NotImplementedError(
+                "the vocab-sharded serve over a mesh comes with the "
+                "dry-run slice of the port")
+        cfg = self.cfg
+
+        def serve(params, batch):
+            return b4r.serve_scores(params, batch, cfg)
+
+        return serve, (self.abstract_params(shape),
+                       self.batch_abstract(shape))
+
+    def model_flops(self, shape: str) -> float:
+        m = self.shapes[shape].meta
+        cfg = self.cfg
+        d, s = cfg.d_model, cfg.seq_len
+        per_tok = cfg.n_blocks * (4 * d * d + 2 * d * cfg.d_ff) * 2
+        attn = cfg.n_blocks * 4 * s * d * 2
+        enc = m["batch"] * (s * per_tok + attn)
+        if self.shapes[shape].kind == "train":
+            neg = (m["batch"] * cfg.n_masked
+                   * (cfg.n_negatives + 1) * d * 2)
+            return 3.0 * (enc + neg)
+        score = 2.0 * m["batch"] * cfg.n_items * d
+        return enc + score
+
+    def smoke_bundle(self, device=None):
+        """One AdamW step of the masked-item loss on the smoke config
+        over the first 4 sessions of ``session_batches`` (seed 0) on
+        ``device`` (default ``cuda``), from weights drawn on the CPU
+        (seed 0)."""
+        from ..data.recsys import session_batches
+
+        device = resolve_device(device)
+        cfg = self.smoke_cfg
+        it = session_batches(0, cfg.n_items, 4, cfg.seq_len,
+                             cfg.n_masked, cfg.mask_id, cfg.n_negatives)
+        params = _smoke_params(b4r.init_params, cfg, device)
+        opt = self.optimizer()
+        step = _smoke_step(
+            lambda p, b: b4r.masked_item_loss(p, b, cfg), opt)
+        return step, (params, opt.init(params), _on(next(it), device))
 
 
 # =============================================================== mining

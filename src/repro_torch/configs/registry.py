@@ -1,10 +1,7 @@
 """The architecture pool: ``get_arch(id)`` / ``list_archs()``.
 
-The five LM archs and the mining arch carry their exact configs from
-the JAX package's table (sources noted inline) and a reduced smoke
-config.  ``mace``, ``gcn-cora``, ``gat-cora``, ``gin-tu`` and
-``bert4rec`` come with the GNN / MACE / recsys slice (slice 8 of the
-port) and raise ``NotImplementedError`` until then.
+Every arch carries its exact config from the JAX package's table
+(sources noted inline) and a reduced smoke config.
 """
 from __future__ import annotations
 
@@ -12,11 +9,11 @@ import functools
 
 import torch
 
+from ..models.bert4rec import Bert4RecConfig
+from ..models.mace import MACEConfig
 from ..models.moe import MoEConfig
 from ..models.transformer import TransformerConfig
-from .families import LMArch, MiningArch
-
-_LATER = ("mace", "gcn-cora", "gat-cora", "gin-tu", "bert4rec")
+from .families import GNNArch, LMArch, MACEArch, MiningArch, RecsysArch
 
 
 def _smoke_lm(name, **kw):
@@ -94,10 +91,28 @@ def get_arch(arch_id: str):
             _smoke_lm("olmoe", moe=MoEConfig(8, 2, 32), moe_period=1,
                       n_kv_heads=4),
         )
-    if arch_id in _LATER:
-        raise NotImplementedError(
-            f"{arch_id}: the GNN / MACE / recsys archs are not ported yet "
-            "(slice 8 of the port)")
+    if arch_id == "gcn-cora":
+        # [arXiv:1609.02907] 2L hidden 16, sym-norm mean aggregation
+        return GNNArch("gcn-cora", "gcn", n_layers=2, d_hidden=16)
+    if arch_id == "gat-cora":
+        # [arXiv:1710.10903] 2L hidden 8, 8 heads, attn aggregation
+        return GNNArch("gat-cora", "gat", n_layers=2, d_hidden=8,
+                       n_heads=8)
+    if arch_id == "gin-tu":
+        # [arXiv:1810.00826] 5L hidden 64, sum agg, learnable eps
+        return GNNArch("gin-tu", "gin", n_layers=5, d_hidden=64)
+    if arch_id == "mace":
+        # [arXiv:2206.07697] 2L hidden 128 l_max=2 corr=3 n_rbf=8
+        return MACEArch(MACEConfig(name="mace", n_layers=2, d_hidden=128,
+                                   l_max=2, correlation=3, n_rbf=8))
+    if arch_id == "bert4rec":
+        # [arXiv:1904.06690] embed 64, 2 blocks, 2 heads, seq 200.
+        # Catalog 2^20-2 items so the table shards 16-way evenly.
+        cfg = Bert4RecConfig(name="bert4rec", n_items=1_048_574)
+        smoke = Bert4RecConfig(name="bert4rec-smoke", n_items=1000,
+                               seq_len=32, n_masked=4, n_negatives=32,
+                               v_chunk=256)
+        return RecsysArch(cfg, smoke)
     if arch_id == "gtrace-mining":
         return MiningArch()
     raise KeyError(arch_id)

@@ -1,1 +1,2 @@
-"""Synthetic data: graph-sequence databases and LM token streams."""
+"""Synthetic data: graph-sequence databases, LM token streams, graphs
+and molecules with a neighbor sampler, and recsys sessions."""

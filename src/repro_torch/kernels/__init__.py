@@ -43,8 +43,28 @@ def gather_index(idx: torch.Tensor, n: int) -> torch.Tensor:
     return torch.where(idx < 0, idx + n, idx).clamp(0, max(n - 1, 0))
 
 
+def gather_rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``x[idx]`` along ``x``'s first axis for an integer ``idx`` of any
+    shape, the index taken as JAX's plain indexing takes it
+    (``gather_index``), read by ``index_select``: its gradient is an
+    ``index_add`` (atomics on CUDA), where advanced indexing's is a
+    sort-based accumulate."""
+    flat = gather_index(idx, x.shape[0]).reshape(-1)
+    return torch.index_select(x, 0, flat).reshape(*idx.shape, *x.shape[1:])
+
+
 # what JAX's take_along_axis reads for an int32 index out of range
 INT32_MIN = -(2 ** 31)
+
+
+def _wrap_once(idx: torch.Tensor, n: int):
+    """``idx`` wrapped once when in ``[-n, 0)``, as JAX's ``take`` and
+    ``take_along_axis`` take it into an axis of ``n`` entries: (the index
+    clamped into range, int64; whether it was in range)."""
+    idx = idx.long()
+    idx = torch.where(idx < 0, idx + n, idx)
+    ok = (idx >= 0) & (idx < n)
+    return idx.clamp(0, max(n - 1, 0)), ok
 
 
 def take_fill(x: torch.Tensor, dim: int, idx: torch.Tensor) -> torch.Tensor:
@@ -52,12 +72,24 @@ def take_fill(x: torch.Tensor, dim: int, idx: torch.Tensor) -> torch.Tensor:
     taken as ``jnp.take_along_axis`` takes it into an axis of ``n``
     entries: wrapped once when in ``[-n, 0)``; any other index out of
     range reads ``INT32_MIN``."""
-    n = x.shape[dim]
-    idx = idx.long()
-    idx = torch.where(idx < 0, idx + n, idx)
-    ok = (idx >= 0) & (idx < n)
-    got = torch.gather(x, dim, idx.clamp(0, max(n - 1, 0)))
-    return torch.where(ok, got, INT32_MIN)
+    idx, ok = _wrap_once(idx, x.shape[dim])
+    return torch.where(ok, torch.gather(x, dim, idx), INT32_MIN)
+
+
+def take_nan(x: torch.Tensor, dim: int, idx: torch.Tensor) -> torch.Tensor:
+    """``take_fill``'s counterpart for a floating ``x``: any other index
+    out of range reads NaN.  Differentiable in ``x``."""
+    idx, ok = _wrap_once(idx, x.shape[dim])
+    return torch.where(ok, torch.gather(x, dim, idx), torch.nan)
+
+
+def take_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``jnp.take(table, idx, axis=0)`` of a floating ``table`` and a 1-D
+    ``idx``: ``take_nan`` by whole rows, read by ``index_select``."""
+    idx, ok = _wrap_once(idx, table.shape[0])
+    rows = torch.index_select(table, 0, idx)
+    return torch.where(ok.reshape(-1, *[1] * (table.ndim - 1)), rows,
+                       torch.nan)
 
 
 def check_int32(name: str, x, ndim: int, device: torch.device) -> None:

@@ -1,2 +1,3 @@
-"""The LM family's model code: layers, attention, MoE, the transformer,
-and the conversion of the JAX package's parameter trees."""
+"""The model zoo's code: layers, attention, MoE, the transformer, the
+GNNs, MACE, BERT4Rec and EmbeddingBag, and the conversion of the JAX
+package's parameter trees."""

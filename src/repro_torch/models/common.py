@@ -18,6 +18,7 @@ from __future__ import annotations
 from typing import Any, Callable, List, Tuple
 
 import torch
+from torch import nn
 
 PyTree = Any
 
@@ -133,6 +134,56 @@ def count_params(tree: PyTree) -> int:
     return sum(int(x.numel()) for x in tree_leaves(tree))
 
 
+# ---------------------------------------------------------- segment ops
+def _segment_slots(ids: torch.Tensor, n: int) -> torch.Tensor:
+    """Each id as a slot of ``n + 1`` rows: an id outside ``[0, n)``
+    goes to the spare last slot, which the caller drops."""
+    ids = ids.long()
+    return torch.where((ids >= 0) & (ids < n), ids, n)
+
+
+def segment_sum(data: torch.Tensor, ids: torch.Tensor,
+                n: int) -> torch.Tensor:
+    """``jax.ops.segment_sum(data, ids, num_segments=n)``: rows summed by
+    id (``index_add``), an id outside ``[0, n)`` dropped, an empty
+    segment 0.  On CUDA the sums are atomic, in no fixed order."""
+    out = data.new_zeros((n + 1,) + tuple(data.shape[1:]))
+    return out.index_add(0, _segment_slots(ids, n), data)[:n]
+
+
+class _SegmentMax(torch.autograd.Function):
+    """``scatter_reduce`` "amax" over a ``-inf`` start, with JAX's
+    gradient: a segment's gradient splits evenly among the entries equal
+    to its max, the ``-inf`` start counting as one where the max is
+    ``-inf``; a segment whose max is NaN passes none (torch's own
+    backward gives its entries NaN)."""
+
+    @staticmethod
+    def forward(ctx, data, slots, n):
+        out = data.new_full((n + 1,) + tuple(data.shape[1:]), -torch.inf)
+        idx = slots.reshape(-1, *[1] * (data.ndim - 1)).expand_as(data)
+        out = out.scatter_reduce(0, idx, data, "amax", include_self=True)
+        ctx.save_for_backward(data, slots, out)
+        return out[:n]
+
+    @staticmethod
+    def backward(ctx, grad):
+        data, slots, out = ctx.saved_tensors
+        hit = data == out[slots]
+        cnt = (out == -torch.inf).to(data.dtype).index_add(
+            0, slots, hit.to(data.dtype))
+        grad = torch.cat([grad, grad.new_zeros((1,) + grad.shape[1:])])
+        return torch.where(hit, grad[slots] / cnt[slots], 0.0), None, None
+
+
+def segment_max(data: torch.Tensor, ids: torch.Tensor,
+                n: int) -> torch.Tensor:
+    """``jax.ops.segment_max(data, ids, num_segments=n)``: the row-wise
+    max by id, an id outside ``[0, n)`` dropped, an empty segment
+    ``-inf``, and JAX's gradient (``_SegmentMax``)."""
+    return _SegmentMax.apply(data, _segment_slots(ids, n), n)
+
+
 # ------------------------------------------------------------- gradients
 def value_and_grad(fn: Callable) -> Callable:
     """``jax.value_and_grad``: (params, *args) -> (value, grads), grads
@@ -153,3 +204,29 @@ def value_and_grad(fn: Callable) -> Callable:
         return value.detach(), tree_unflatten(params, grads)
 
     return wrapped
+
+
+# ---------------------------------------------------------------- modules
+class _ParamTree(nn.Module):
+    """A nested tree of tensors held as parameters: a dict or a list
+    becomes a child module (a list's entries named "0", "1", ...), a
+    tensor a parameter of the same name, so ``named_parameters()``
+    gives the tree's paths joined by "."."""
+
+    def __init__(self, tree: PyTree):
+        super().__init__()
+        self._is_list = isinstance(tree, list)
+        items = list(enumerate(tree) if self._is_list else tree.items())
+        self._keys = [str(k) for k, _ in items]
+        for key, val in items:
+            if isinstance(val, (dict, list)):
+                self.add_module(str(key), _ParamTree(val))
+            else:
+                self.register_parameter(str(key), nn.Parameter(
+                    val, requires_grad=val.is_floating_point()))
+
+    def tree(self) -> PyTree:
+        """The live parameters as the JAX-shaped dict (or list)."""
+        vals = [getattr(self, key) for key in self._keys]
+        vals = [v.tree() if isinstance(v, _ParamTree) else v for v in vals]
+        return vals if self._is_list else dict(zip(self._keys, vals))

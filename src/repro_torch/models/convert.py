@@ -1,8 +1,9 @@
 """Weights between the JAX package and the port.
 
 A JAX parameter tree, taken to numpy (``jax.tree.map(np.asarray, p)``:
-nested dicts keyed as ``path_str`` keys them), becomes the port's
-``Transformer`` with the same names, shapes and dtypes, and back.  The
+nested dicts and lists keyed as ``path_str`` keys them), becomes the
+port's module for its config (``Transformer``, ``GNN``, ``MACE`` or
+``Bert4Rec``) with the same names, shapes and dtypes, and back.  The
 port's own init draws other random values than JAX's, so every test
 that holds the port against JAX converts JAX's init through here.
 """
@@ -11,8 +12,15 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .common import PyTree, tree_map
-from .transformer import Transformer, TransformerConfig, _ParamTree
+from .bert4rec import Bert4Rec, Bert4RecConfig
+from .common import PyTree, _ParamTree, tree_leaves_with_path, tree_map
+from .gnn import GNN, GNNConfig
+from .mace import MACE, MACEConfig
+from .transformer import Transformer, TransformerConfig
+
+# each family's config -> its module
+_MODULES = {TransformerConfig: Transformer, GNNConfig: GNN,
+            MACEConfig: MACE, Bert4RecConfig: Bert4Rec}
 
 
 def tensor_from_numpy(a, device=None, dtype=None) -> torch.Tensor:
@@ -41,27 +49,26 @@ def tree_from_numpy(tree: PyTree, device=None) -> PyTree:
     return tree_map(lambda a: tensor_from_numpy(a, device), tree)
 
 
-def params_from_numpy(tree: PyTree, cfg: TransformerConfig,
-                      device=None) -> Transformer:
-    """The JAX tree (numpy leaves) as the port's module on ``device``."""
-    return Transformer(cfg, tree_from_numpy(tree, device))
+def params_from_numpy(tree: PyTree, cfg, device=None) -> _ParamTree:
+    """The JAX tree (numpy leaves) as the port's module for ``cfg`` on
+    ``device``: a GNN's list of layer dicts, MACE's dicts and layer
+    list, BERT4Rec's and the transformer's stacked blocks."""
+    return _MODULES[type(cfg)](cfg, tree_from_numpy(tree, device))
 
 
 def load_numpy(module: _ParamTree, tree: PyTree) -> None:
-    """Copy a numpy tree into ``module``'s parameters in place; names
+    """Copy a numpy tree into ``module``'s parameters in place; paths
     and shapes must match."""
-    own = module.tree()
-    if set(own) != set(tree):
-        raise KeyError(f"keys differ: {sorted(set(own) ^ set(tree))}")
+    own = dict(tree_leaves_with_path(module.tree()))
+    new = dict(tree_leaves_with_path(tree))
+    if set(own) != set(new):
+        raise KeyError(f"paths differ: {sorted(set(own) ^ set(new))}")
     with torch.no_grad():
-        for key, val in tree.items():
-            if isinstance(val, dict):
-                load_numpy(getattr(module, key), val)
-                continue
-            p = own[key]
+        for path, val in new.items():
+            p = own[path]
             src = tensor_from_numpy(val)
             if tuple(src.shape) != tuple(p.shape):
-                raise ValueError(f"{key}: shape {tuple(src.shape)} != "
+                raise ValueError(f"{path}: shape {tuple(src.shape)} != "
                                  f"{tuple(p.shape)}")
             p.copy_(src.to(p.dtype))
 

@@ -21,7 +21,6 @@ import dataclasses
 from typing import Any, Dict, Optional
 
 import torch
-from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from .attention import (
@@ -29,7 +28,7 @@ from .attention import (
     constrain_batch,
     decode_attention,
 )
-from .common import normal_init, tree_map
+from .common import _ParamTree, normal_init, tree_map
 from .layers import act_fn, apply_rope, rms_norm
 from .moe import MoEConfig, moe_ffn
 
@@ -322,29 +321,6 @@ def decode_step(params, cache, tokens, cfg: TransformerConfig):
 
 
 # ------------------------------------------------------------------ module
-class _ParamTree(nn.Module):
-    """A nested dict of tensors held as parameters: a dict becomes a
-    child module, a tensor a parameter of the same name."""
-
-    def __init__(self, tree: PyTree):
-        super().__init__()
-        self._keys = list(tree)
-        for key, val in tree.items():
-            if isinstance(val, dict):
-                self.add_module(key, _ParamTree(val))
-            else:
-                self.register_parameter(key, nn.Parameter(
-                    val, requires_grad=val.is_floating_point()))
-
-    def tree(self) -> PyTree:
-        """The live parameters as the JAX-shaped dict."""
-        out = {}
-        for key in self._keys:
-            val = getattr(self, key)
-            out[key] = val.tree() if isinstance(val, _ParamTree) else val
-        return out
-
-
 class Transformer(_ParamTree):
     """The transformer as an ``nn.Module``: ``named_parameters()`` gives
     the tree's paths joined by "." (``sub0.mlp.wi``), and every method

@@ -18,7 +18,8 @@ PORT_FILES = sorted(
 ) + [os.path.join(ROOT, "chip_smoke.py")] + [
     os.path.join(ROOT, "tests", name) for name in
     ("torch_dist_worker.py", "test_torch_distributed_cuda.py",
-     "test_torch_models_cuda.py", "torch_lm_checks.py")]
+     "test_torch_models_cuda.py", "torch_lm_checks.py",
+     "test_torch_families_cuda.py", "torch_family_checks.py")]
 # JAX package module -> the port's counterpart, held name for name
 SURFACES = {
     "repro.serving": "repro_torch.serving",
@@ -36,19 +37,25 @@ SURFACES = {
     "repro.training.checkpoint": "repro_torch.training.checkpoint",
     "repro.training.train_loop": "repro_torch.training.train_loop",
     "repro.data.lm": "repro_torch.data.lm",
+    "repro.models.gnn": "repro_torch.models.gnn",
+    "repro.models.mace": "repro_torch.models.mace",
+    "repro.models.bert4rec": "repro_torch.models.bert4rec",
+    "repro.models.embedding": "repro_torch.models.embedding",
+    "repro.data.graphs": "repro_torch.data.graphs",
+    "repro.data.recsys": "repro_torch.data.recsys",
     "repro.configs.base": "repro_torch.configs.base",
     "repro.configs.families": "repro_torch.configs.families",
     "repro.configs.registry": "repro_torch.configs.registry",
 }
-# Names of a mirrored module that later slices of the port bring, and
-# nothing else: the GNN / MACE / recsys archs (slice 8), the sharding
-# helpers of the dry-run (slice 9).
+# Names of a mirrored module that a later slice of the port brings, and
+# nothing else: the dry-run's sharding helpers and the vocab-sharded
+# BERT4Rec serve over a mesh (the dry-run slice).
 LATER_SLICES = {
     "repro.models.common": {"Rules", "dp_axes", "resolve_template",
                             "tree_param_specs", "guard_tree_specs",
                             "tree_shardings"},
     "repro.configs.base": {"resolve_batch", "opt_state_specs"},
-    "repro.configs.families": {"GNNArch", "MACEArch", "RecsysArch"},
+    "repro.models.bert4rec": {"make_sharded_serve"},
 }
 
 
@@ -69,7 +76,10 @@ def test_import_leaves_jax_and_repro_unloaded():
         "repro_torch.launch.mesh, repro_torch.obs, "
         "repro_torch.launch.serve, repro_torch.launch.train, "
         "repro_torch.configs.registry, repro_torch.models.convert, "
-        "repro_torch.training.train_loop\n"
+        "repro_torch.training.train_loop, repro_torch.models.gnn, "
+        "repro_torch.models.mace, repro_torch.models.bert4rec, "
+        "repro_torch.models.embedding, repro_torch.data.graphs, "
+        "repro_torch.data.recsys\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro'))\n"
         "print(bad)\n"
