@@ -129,7 +129,23 @@ line) on any failure:
    contain_step and trie_walk launches (zeroed just before) equal to
    its device calls; the five family smoke steps on cuda are held to
    the CPU's;
-13. one JSON line describing every ported kernel, then the last line
+13. the dry run and the vocab-sharded serve: (a) ``python -m
+   repro_torch.launch.dryrun`` (mesh device ``cuda``, both production
+   meshes, one rank of a fake world of 256 / 512 traced under
+   ``FakeTensorMode``) over gtrace-mining scan_1m / scan_xl, the four
+   bert4rec shapes, gcn-cora full_graph_sm / minibatch_lg, gat-cora
+   full_graph_sm, mace molecule and smollm-135m train_4k / decode_32k,
+   in subprocesses started (at the lowest priority) before phase 11 and
+   read here; each cell's trace seconds, argument bytes, collectives
+   and bottleneck printed, every mining and bert4rec cell ``ok``; (b)
+   ``make_sharded_serve`` at serve_p99's full config (1,048,574 items,
+   batch 512) on 8 gloo ranks sharing ``cuda:0`` (4 data x 2 model,
+   ``tests/torch_dist_worker.py``) and on a 1x1 NCCL mesh, each rank's
+   block held to the unsharded ``serve_scores`` on the card (scores
+   within 1e-4, ids as sets wherever the k-th and (k+1)-th brute-force
+   scores differ by more than 1e-5), ms a call (median of 5) beside
+   the unsharded serve's;
+14. one JSON line describing every ported kernel, then the last line
    ``{"ok": true, "device": {...}}``.
 
 It needs a CUDA device and the repository around it: without either it
@@ -2760,6 +2776,177 @@ def phase_families() -> None:
     log(f"[family] phase 12 wall {time.perf_counter() - t0:.1f}s ({gpu})")
 
 
+# the dry-run phase: (arch, shape or every shape, meshes) a subprocess,
+# started before phase 11 at the lowest priority; the cells each must
+# write; mining and bert4rec cells must be ok
+DRY_RUNS = (("gtrace-mining", None, "both"), ("bert4rec", None, "single"),
+            ("bert4rec", None, "multi"), ("gcn-cora", "full_graph_sm", "both"),
+            ("gcn-cora", "minibatch_lg", "both"),
+            ("gat-cora", "full_graph_sm", "both"), ("mace", "molecule", "both"),
+            ("smollm-135m", "train_4k", "single"),
+            ("smollm-135m", "train_4k", "multi"),
+            ("smollm-135m", "decode_32k", "both"))
+DRY_REQUIRED, DRY_TIMEOUT_S = ("gtrace-mining", "bert4rec"), 900.0
+DRY_OUT = os.path.join(ROOT, "build", "dryrun_smoke")
+# the sharded serve: calls timed a mesh, and their bounds
+SHARD_REPS, SHARD_SCORE_TOL, TOPK_GAP = 5, 1e-4, 1e-5
+
+
+def _dry_cells():
+    """(arch, shape, mesh) of every cell ``DRY_RUNS`` writes."""
+    from repro_torch.configs.registry import get_arch
+
+    return [(a, sh, m) for a, shape, meshes in DRY_RUNS
+            for sh in ([shape] if shape else get_arch(a).shapes)
+            for m in (("single", "multi") if meshes == "both" else (meshes,))]
+
+
+def start_dryrun() -> list:
+    """Phase 13(a)'s subprocesses, started now at the lowest priority
+    (the card is not used: every tensor is fake); read by
+    ``phase_dryrun``, stopped by ``stop_all``."""
+    import shutil
+
+    shutil.rmtree(DRY_OUT, ignore_errors=True)
+    os.makedirs(DRY_OUT)
+    env = dict(os.environ)
+    env["PYTHONPATH"] = SRC + (os.pathsep + env["PYTHONPATH"]
+                               if env.get("PYTHONPATH") else "")
+    procs = []
+    for i, (arch, shape, meshes) in enumerate(DRY_RUNS):
+        cmd = ["nice", "-n", "19", sys.executable, "-m",
+               "repro_torch.launch.dryrun", "--arch", arch, "--mesh", meshes,
+               "--out", DRY_OUT]
+        cmd += ["--shape", shape] if shape else []
+        log_f = open(os.path.join(DRY_OUT, f"run{i}.log"), "w")
+        procs.append((subprocess.Popen(
+            cmd, stdout=log_f, stderr=subprocess.STDOUT, cwd=ROOT, env=env),
+            log_f))
+    return procs
+
+
+def stop_all(procs) -> None:
+    for p, log_f in procs:
+        if p.poll() is None:
+            p.kill()
+            p.wait(timeout=30)
+        log_f.close()
+
+
+def phase_dryrun(procs, t_started) -> None:
+    """Phase 13(a): wait for the dry-run subprocesses and print every
+    cell; raise unless each wrote its cells and every mining and
+    bert4rec cell is ok."""
+    deadline = t_started + DRY_TIMEOUT_S
+    for p, _ in procs:
+        p.wait(timeout=max(1.0, deadline - time.perf_counter()))
+    log(f"[dryrun] {len(procs)} subprocesses done "
+        f"{time.perf_counter() - t_started:.1f}s after they started")
+    failed = []
+    for arch, shape, mesh in _dry_cells():
+        path = os.path.join(DRY_OUT, f"{arch}__{shape}__{mesh}.json")
+        if not os.path.exists(path):
+            raise AssertionError(f"the dry run wrote no {path}")
+        with open(path) as f:
+            r = json.load(f)
+        tag = f"[dryrun] {arch} {shape} {r['mesh']}"
+        if not r["ok"]:
+            log(f"{tag}: FAILED: {r['error']}")
+            failed.append((arch, shape, mesh))
+            continue
+        coll = ", ".join(f"{k} {d['count']} x / {int(d['bytes'])} B"
+                         for k, d in sorted(r["collectives"].items()))
+        fb = ", ".join(f"{n} x {op}"
+                       for op, n in r["replicated_fallbacks"].items())
+        log(f"{tag}: ok on {r['device']}, trace {r['t_trace_s']}s, "
+            f"arguments {r['memory']['argument_size_in_bytes']} B/rank, "
+            f"peak live {r['memory']['temp_size_in_bytes']} B/rank, "
+            f"{r['roofline']['flops_per_chip']:.6g} FLOP/rank, "
+            f"collectives {coll or 'none'}, bottleneck "
+            f"{r['roofline']['bottleneck']}"
+            + (f"; placed by hand: {fb}" if fb else ""))
+    bad = [c for c in failed if c[0] in DRY_REQUIRED]
+    if bad:
+        raise AssertionError(f"dry-run cells not ok: {bad}")
+
+
+def phase_sharded_serve() -> None:
+    """Phase 13(b): ``make_sharded_serve`` at serve_p99's full config on
+    8 gloo ranks (4 data x 2 model) sharing ``cuda:0`` and on a 1x1 NCCL
+    mesh, each rank's block held to the unsharded ``serve_scores`` on
+    the card; ms a call beside it."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.models import bert4rec as b4r
+
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    from torch_dist_worker import b4r_inputs, recsys_serve_job, run_world
+
+    gpu = _gpu_line()
+    cfg = get_arch("bert4rec").cfg
+    kw = {f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg)}
+    dev = torch.device("cuda")
+    params, seq = b4r_inputs(cfg, None, dev)
+    ms = []
+    with torch.no_grad():
+        for _ in range(SHARD_REPS + 1):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ref_s, ref_i = b4r.serve_scores(params, {"seq": seq}, cfg)
+            torch.cuda.synchronize()
+            ms.append(1e3 * (time.perf_counter() - t0))
+        hidden = b4r.encode(params, seq, cfg)
+        last = ((seq > 0).sum(-1) - 1).clamp(min=0)
+        query = hidden[torch.arange(seq.shape[0], device=dev), last]
+        del hidden
+        sc = query @ params["item_emb"][1:cfg.n_items + 1].T
+        top = torch.topk(sc, cfg.topk + 1, dim=-1).values
+        firm = (top[:, cfg.topk - 1] - top[:, cfg.topk]) > TOPK_GAP
+        del sc
+    log(f"[sharded serve] serve_p99 ({seq.shape[0]} rows, {cfg.n_items} "
+        f"items, top-{cfg.topk}): unsharded serve_scores on the card "
+        f"{statistics.median(ms[1:]):.3f} ms a call (median of "
+        f"{SHARD_REPS}) ({gpu})")
+    work = os.path.join(ROOT, "build", "multi_rank", "sharded_serve")
+    os.makedirs(work, exist_ok=True)
+    for tag, world, model, backend in (
+            ("gloo 4x2", 8, 2, "cpu:gloo,cuda:gloo"), ("nccl 1x1", 1, 1,
+                                                       "nccl")):
+        t0 = time.perf_counter()
+        reports = run_world(recsys_serve_job, world, work, None, kw, model,
+                            "cuda", SHARD_REPS, backend=backend,
+                            timeout=DIST_TIMEOUT_S)
+        held = 0
+        for r in reports:
+            n = seq.shape[0] // int(r["n_rows"])
+            rows = slice(n * int(r["row"]), n * (int(r["row"]) + 1))
+            err = float((torch.as_tensor(r["scores"], device=dev)
+                         - ref_s[rows]).abs().max())
+            same = (torch.sort(torch.as_tensor(r["ids"], device=dev), -1)
+                    .values == torch.sort(ref_i[rows], -1).values).all(-1)
+            bad = firm[rows] & ~same
+            if err > SHARD_SCORE_TOL or bool(bad.any()):
+                raise AssertionError(
+                    f"[sharded serve] {tag} rank block {r['row']}/"
+                    f"{r['model']}: score error {err}, "
+                    f"{int(bad.sum())} firm rows with other ids")
+            if int(r["model"]) == 0:
+                held += int((firm[rows] & same).sum())
+            if not (r["many_global"] and not r["one_global"]):
+                raise AssertionError(f"{tag}: the arch's serve step over the "
+                                     "mesh took the wrong serve")
+        r0 = reports[0]
+        log(f"[sharded serve] {tag} ({world} rank(s) on cuda:0): every "
+            f"rank's block == serve_scores (scores within "
+            f"{SHARD_SCORE_TOL}, ids on {held} of {seq.shape[0]} rows, the "
+            f"rest within a {TOPK_GAP} tie); rank 0 "
+            f"{statistics.median(r0['ms']):.3f} ms a call (median of "
+            f"{SHARD_REPS}); world done in "
+            f"{time.perf_counter() - t0:.1f}s ({gpu})")
+
+
 def main() -> int:
     import torch
 
@@ -2793,8 +2980,15 @@ def main() -> int:
     stream = phase_streaming(setup)
     phase_cluster(setup, stream)
     dist_errs = phase_multi_rank(res, setup)
-    phase_lm()
-    phase_families()
+    t_dry = time.perf_counter()
+    dry = start_dryrun()
+    try:
+        phase_lm()
+        phase_families()
+        phase_dryrun(dry, t_dry)
+    finally:
+        stop_all(dry)
+    phase_sharded_serve()
 
     for k in kernels:
         k["max_abs_err"] = max(k["max_abs_err"], dist_errs.get(k["name"], 0))

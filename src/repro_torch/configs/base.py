@@ -3,15 +3,15 @@ surface to the launchers:
 
 * ``abstract_params(shape)`` / ``init_params(gen, shape, device)``
 * ``make_step(shape)``   -> (step_fn, abstract example args)
+* ``arg_specs(shape, mesh, args)`` -> ``P`` tree matching the args
 * ``model_flops(shape)`` -> useful-work FLOPs for the roofline ratio
 * ``smoke_bundle()``     -> reduced-config one-step closure and inputs
 
 Abstract values are tensors on the ``meta`` device, where the JAX
 package has ``jax.ShapeDtypeStruct``.  Step kinds: "train" runs
 loss+grad+optimizer; "prefill"/"serve"/"score" run the inference path
-the shape dictates.  The sharding surface of the JAX module
-(``arg_specs``, ``resolve_batch``, ``opt_state_specs``) comes with the
-dry-run slice.
+the shape dictates.  Specs are the port's ``P`` over a ``DeviceMesh``
+(``models.common``); ``launch.dryrun`` turns them into DTensors.
 """
 from __future__ import annotations
 
@@ -20,6 +20,7 @@ from typing import Any, Callable, Dict, Tuple
 
 import torch
 
+from ..models import common
 from ..models.common import value_and_grad
 from ..training.optimizer import AdamW, clip_by_global_norm
 
@@ -110,7 +111,16 @@ class Arch:
     def init_params(self, gen, shape: str, device=None) -> PyTree:
         raise NotImplementedError
 
+    def param_rules(self) -> common.Rules:
+        raise NotImplementedError
+
     def batch_abstract(self, shape: str) -> PyTree:
+        raise NotImplementedError
+
+    def batch_spec_templates(self, shape: str) -> PyTree:
+        raise NotImplementedError
+
+    def serve_spec_templates(self, shape: str) -> list:
         raise NotImplementedError
 
     def loss_fn(self, shape: str) -> Callable:
@@ -153,3 +163,45 @@ class Arch:
 
     def make_serve_step(self, shape: str, mesh=None):
         raise NotImplementedError
+
+    def arg_specs(self, shape: str, mesh, args: PyTree) -> PyTree:
+        """``P`` tree matching make_step's abstract args."""
+        kind = self.shapes[shape].kind
+        rules = self.param_rules()
+
+        if kind == "train":
+            params, opt_state, batch = args
+            pspec = common.tree_param_specs(params, rules, mesh)
+            ospec = opt_state_specs(opt_state, rules, mesh)
+            bspec = resolve_batch(self.batch_spec_templates(shape), mesh)
+            bspec = common.guard_tree_specs(batch, bspec, mesh)
+            return (pspec, ospec, bspec)
+        params = args[0]
+        pspec = common.tree_param_specs(params, rules, mesh)
+        rest = [
+            common.guard_tree_specs(a, resolve_batch(t, mesh), mesh)
+            for a, t in zip(args[1:], self.serve_spec_templates(shape))
+        ]
+        return (pspec, *rest)
+
+
+def _is_template(x) -> bool:
+    return isinstance(x, tuple) and all(
+        isinstance(e, (str, type(None), tuple)) for e in x)
+
+
+def resolve_batch(tpl_tree: PyTree, mesh) -> PyTree:
+    """Every template of ``tpl_tree`` (a tuple of axis names, tuples and
+    None) resolved for ``mesh``; dicts and lists keep their shape."""
+    if _is_template(tpl_tree):
+        return common.resolve_template(tpl_tree, mesh)
+    if isinstance(tpl_tree, dict):
+        return {k: resolve_batch(v, mesh) for k, v in tpl_tree.items()}
+    return type(tpl_tree)(resolve_batch(v, mesh) for v in tpl_tree)
+
+
+def opt_state_specs(opt_state, rules, mesh) -> PyTree:
+    """Optimizer state mirrors param sharding; quantized scales drop the
+    spec entry on their size-1 trailing axis (handled by the dim-1 guard
+    in tree_param_specs)."""
+    return common.tree_param_specs(opt_state, rules, mesh)

@@ -1,7 +1,7 @@
 """Family adapters with the uniform Arch surface (see base.py): LM / GNN
-/ MACE / RecSys / Mining archs.  ``param_rules`` /
-``serve_spec_templates`` / ``batch_spec_templates`` and the recsys
-serve over a device mesh come with the dry-run slice."""
+/ MACE / RecSys / Mining archs, each with the JAX package's sharding
+rules (``param_rules``, ``batch_spec_templates``,
+``serve_spec_templates``)."""
 from __future__ import annotations
 
 import dataclasses
@@ -14,6 +14,7 @@ import torch
 from ..kernels import resolve_device
 from ..models import bert4rec as b4r
 from ..models import gnn as gnn_mod
+from ..models import common
 from ..models import mace as mace_mod
 from ..models import transformer as tf
 from ..models.common import tree_map, value_and_grad
@@ -88,6 +89,23 @@ class LMArch(Arch):
     def init_params(self, gen, shape: str, device=None) -> PyTree:
         return tf.init_params(gen, self.cfg, device)
 
+    def param_rules(self):
+        # TP over "model", FSDP/ZeRO over the pure-DP axes ("DATA")
+        return [
+            (r"embed", (MODEL, DATA)),                   # [V, D]
+            (r"head", (DATA, MODEL)),                    # [D, V]
+            (r"moe/wr", (None, DATA, None)),             # router [n,D,E]
+            (r"moe/shared_wi|moe/shared_wg", (None, DATA, MODEL)),
+            (r"moe/shared_wo", (None, MODEL, DATA)),
+            (r"moe/wi|moe/wg", (None, MODEL, DATA, None)),  # [n,E,D,F]
+            (r"moe/wo", (None, MODEL, None, DATA)),      # [n,E,F,D]
+            (r"wq$|wk$|wv$", (None, DATA, MODEL)),       # [n,D,H*hd]
+            (r"wo$", (None, MODEL, DATA)),               # [n,H*hd,D]
+            (r"mlp/wi|mlp/wg", (None, DATA, MODEL)),     # [n,D,F]
+            (r"mlp/wo", (None, MODEL, DATA)),            # [n,F,D]
+            (r"ln", ()),
+        ]
+
     def optimizer(self) -> AdamW:
         return AdamW(lr=3e-4, weight_decay=0.01,
                      state_dtype=self.opt_state_dtype)
@@ -100,15 +118,32 @@ class LMArch(Arch):
             "targets": _sds((m["batch"], m["seq"]), torch.int32),
         }
 
+    def batch_spec_templates(self, shape: str) -> PyTree:
+        return {"tokens": (DATA, None), "targets": (DATA, None)}
+
     def loss_fn(self, shape: str) -> Callable:
         cfg = self.cfg
         return lambda params, batch: tf.lm_loss(params, batch, cfg)
+
+    def _mesh_cfg(self, mesh):
+        """The config whose activations are constrained batch-sharded
+        over ``mesh``'s DP axes (DTensor inputs only)."""
+        if mesh is None:
+            return self.cfg
+        return dataclasses.replace(self.cfg, batch_axes=common.dp_axes(mesh))
+
+    def make_train_step(self, shape: str, mesh=None):
+        if mesh is not None:
+            arch = LMArch(self._mesh_cfg(mesh), self.smoke_cfg,
+                          self.opt_state_dtype)
+            return super(LMArch, arch).make_train_step(shape)
+        return super().make_train_step(shape)
 
     # ---- serve / prefill
     def make_serve_step(self, shape: str, mesh=None):
         sd = self.shapes[shape]
         m = sd.meta
-        cfg = self.cfg
+        cfg = self._mesh_cfg(mesh)
         params = self.abstract_params(shape)
         if sd.kind == "prefill":
             def prefill(params, tokens):
@@ -126,6 +161,26 @@ class LMArch(Arch):
             return tf.decode_step(params, cache, tokens, cfg)
 
         return decode, (params, cache, tokens)
+
+    def serve_spec_templates(self, shape: str):
+        sd = self.shapes[shape]
+        m = sd.meta
+        if sd.kind == "prefill":
+            return [(DATA, None)]  # tokens
+        batch_axes = DATA if m["batch"] > 1 else None
+        # cache [n_super, B, S, KV, hd]: batch over DATA when possible,
+        # sequence over MODEL (split-KV decode); B=1 long-context shards
+        # the sequence over every axis.
+        seq_axes = MODEL if m["batch"] > 1 else (DATA, MODEL)
+        kv_spec = (None, batch_axes, seq_axes, None, None)
+        cache_spec = {
+            "kv": {
+                f"sub{i}": {"k": kv_spec, "v": kv_spec}
+                for i in range(self.cfg.moe_period)
+            },
+            "len": (batch_axes,),
+        }
+        return [cache_spec, (batch_axes, None)]
 
     # ---- metrics
     def n_params(self, active_only=False) -> float:
@@ -206,6 +261,9 @@ class GNNArch(Arch):
     def init_params(self, gen, shape: str, device=None) -> PyTree:
         return gnn_mod.init_params(gen, self._cfg(shape), device)
 
+    def param_rules(self):
+        return [(r".*", ())]  # GNN params are tiny: replicate
+
     def optimizer(self) -> AdamW:
         return AdamW(lr=1e-2, weight_decay=5e-4)
 
@@ -241,6 +299,31 @@ class GNNArch(Arch):
             "graph_labels": _sds((b,), torch.int32),
             "x": _sds((n, m["d_feat"]), torch.float32),
         }
+
+    def batch_spec_templates(self, shape: str) -> PyTree:
+        m = self.shapes[shape].meta
+        big = m["task"] in ("node", "node_sampled") and m["n_nodes"] > 10000
+        espec = (None, DATA) if big else (None, None)
+        out = {
+            "x": (None, None),  # d_feat of the assigned shapes is not
+            # divisible by the model axis; features replicate
+            "edges": espec,
+            "labels": (None,),
+            "mask": (None,),
+        }
+        if m["task"] == "node_sampled":
+            # the JAX rule: the (DATA,) spec of a big graph is overridden,
+            # the mask aligned with the edges replicates
+            out["edge_mask"] = (DATA,) if big else (None,)
+            out["edge_mask"] = (None,)
+        if m["task"] == "graph":
+            out = {
+                "edges": (None, DATA),
+                "graph_id": (None,),
+                "graph_labels": (None,),
+                "x": (None, None),
+            }
+        return out
 
     def loss_fn(self, shape: str) -> Callable:
         cfg = self._cfg(shape)
@@ -309,6 +392,9 @@ class MACEArch(Arch):
     def init_params(self, gen, shape: str, device=None) -> PyTree:
         return mace_mod.init_params(gen, self.cfg, device)
 
+    def param_rules(self):
+        return [(r".*", ())]
+
     def optimizer(self) -> AdamW:
         return AdamW(lr=1e-2)
 
@@ -330,6 +416,17 @@ class MACEArch(Arch):
             "edges": _sds((2, e), torch.int32),
             "graph_id": _sds((n,), torch.int32),
             "targets": _sds((g,), torch.float32),
+        }
+
+    def batch_spec_templates(self, shape: str) -> PyTree:
+        n, e, _ = self._sizes(shape)
+        big = e > 1_000_000
+        return {
+            "species": (None,),
+            "pos": (None, None),
+            "edges": (None, DATA) if big else (None, None),
+            "graph_id": (None,),
+            "targets": (None,),
         }
 
     def loss_fn(self, shape: str) -> Callable:
@@ -386,6 +483,12 @@ class RecsysArch(Arch):
     def init_params(self, gen, shape: str, device=None) -> PyTree:
         return b4r.init_params(gen, self.cfg, device)
 
+    def param_rules(self):
+        return [
+            (r"item_emb", (MODEL, None)),  # the big table: vocab-sharded
+            (r".*", ()),
+        ]
+
     def batch_abstract(self, shape: str) -> PyTree:
         m = self.shapes[shape].meta
         cfg = self.cfg
@@ -398,25 +501,43 @@ class RecsysArch(Arch):
             }
         return {"seq": _sds((m["batch"], cfg.seq_len), torch.int32)}
 
+    def batch_spec_templates(self, shape: str) -> PyTree:
+        if self.shapes[shape].kind == "train":
+            return {
+                "seq": (DATA, None),
+                "masked_pos": (DATA, None),
+                "masked_ids": (DATA, None),
+                "negatives": (None,),
+            }
+        m = self.shapes[shape].meta
+        return {"seq": ((DATA, None) if m["batch"] > 1 else (None, None))}
+
     def loss_fn(self, shape: str) -> Callable:
         cfg = self.cfg
         return lambda p, b: b4r.masked_item_loss(p, b, cfg)
 
     def make_serve_step(self, shape: str, mesh=None):
-        """``serve_scores`` and its abstract (params, batch).  The serve
-        over a device mesh (each model rank scoring its vocab shard)
-        comes with the dry-run slice."""
-        if mesh is not None:
-            raise NotImplementedError(
-                "the vocab-sharded serve over a mesh comes with the "
-                "dry-run slice of the port")
+        """The serve and its abstract (params, batch).  Over a mesh, a
+        batch of more than one row that the DP size divides takes the
+        vocab-sharded serve (``b4r.make_sharded_serve``: each rank's
+        block of the scores); any other takes ``serve_scores``."""
         cfg = self.cfg
+        params = self.abstract_params(shape)
+        batch = self.batch_abstract(shape)
+        m = self.shapes[shape].meta
+        if mesh is not None and m["batch"] > 1:
+            dp = common.dp_axes(mesh)
+            if m["batch"] % common.axes_size(mesh, dp) == 0:
+                serve = b4r.make_sharded_serve(cfg, mesh, dp)
+                return serve, (params, batch)
 
         def serve(params, batch):
             return b4r.serve_scores(params, batch, cfg)
 
-        return serve, (self.abstract_params(shape),
-                       self.batch_abstract(shape))
+        return serve, (params, batch)
+
+    def serve_spec_templates(self, shape: str):
+        return [self.batch_spec_templates(shape)]
 
     def model_flops(self, shape: str) -> float:
         m = self.shapes[shape].meta
@@ -463,6 +584,9 @@ class MiningArch(Arch):
 
     def abstract_params(self, shape: str) -> PyTree:
         return {}
+
+    def param_rules(self):
+        return [(r".*", ())]
 
     def batch_abstract(self, shape: str) -> PyTree:
         m = self.shapes[shape].meta

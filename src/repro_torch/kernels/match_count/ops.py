@@ -5,9 +5,16 @@ wavefront chunk; ``match_signatures_kernel`` is the scalar form (one
 shared ``existing`` table and scalar ``nv``/``n_pat``/``mode``), a thin
 wrapper over the same kernel with one pattern (NP = 1, ``pid`` all 0).
 
-Both choose by the device of ``tokens``: CPU tensors run the plain
-version in ``ref.py``; CUDA tensors launch ``csrc/match_count.cu`` or
-raise.  ``launches`` counts the kernel launches and nothing else.
+Both choose by the device of ``tokens``, through the operator
+``repro_torch::match_count`` (a ``torch.library.Library`` op: the
+``custom_op`` decorator's wrapper imports ``torch._dynamo`` at a
+process's first call, seconds in every spawned rank): on CPU tensors its
+CPU implementation runs the plain version in ``ref.py``; on CUDA tensors
+its CUDA implementation launches ``csrc/match_count.cu`` or raises.  Its
+fake implementation makes an empty int32 ``[E, T]`` and computes
+nothing: only fake tensors reach it (a ``FakeTensorMode`` trace, as in
+``launch.dryrun``, which sees the op by name).  ``launches`` counts the
+kernel launches and nothing else.
 """
 from __future__ import annotations
 
@@ -70,15 +77,32 @@ def match_signatures_batch(tokens, gid, phi, psi, emb_valid, pid,
         if args[name][0].shape[0] != NP:
             raise ValueError(f"{name} has {args[name][0].shape[0]} rows, "
                              f"ex_stack has {NP}")
-    if device.type == "cpu":
-        return match_signatures_batch_ref(tokens, gid, phi, psi, emb_valid,
-                                          pid, ex_stack, nv_stack,
-                                          npat_stack, mode_stack)
-    if device.type != "cuda":
+    if device.type not in ("cpu", "cuda"):
         raise ValueError(f"match_count runs on cpu or cuda, not {device}")
-    for name, (x, _) in args.items():
+    return torch.ops.repro_torch.match_count(
+        tokens, gid, phi, psi, emb_valid, pid, ex_stack, nv_stack,
+        npat_stack, mode_stack)
+
+
+def _match_count_fake(tokens, gid, phi, psi, emb_valid, pid, ex_stack,
+                      nv_stack, npat_stack, mode_stack):
+    return tokens.new_empty((gid.shape[0], tokens.shape[1]))
+
+
+def _match_count_cuda(tokens, gid, phi, psi, emb_valid, pid, ex_stack,
+                      nv_stack, npat_stack, mode_stack):
+    args = {"tokens": tokens, "gid": gid, "phi": phi, "psi": psi,
+            "emb_valid": emb_valid, "pid": pid, "ex_stack": ex_stack,
+            "nv_stack": nv_stack, "npat_stack": npat_stack,
+            "mode_stack": mode_stack}
+    for name, x in args.items():
         if not x.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+    device = tokens.device
+    G, T, _ = tokens.shape
+    E, NI = phi.shape
+    NV = psi.shape[1]
+    NP, P, _ = ex_stack.shape
     if E > 0 and (G == 0 or NP == 0):
         raise ValueError("rows to scan but an empty tokens or ex_stack")
     sigs = torch.empty((E, T), dtype=torch.int32, device=device)
@@ -99,6 +123,18 @@ def match_signatures_batch(tokens, gid, phi, psi, emb_valid, pid,
     global launches
     launches += 1
     return sigs
+
+
+# the operator's registration lives as long as this library object
+_LIB = torch.library.Library("repro_torch", "FRAGMENT")
+_LIB.define("match_count(Tensor tokens, Tensor gid, Tensor phi, Tensor psi, "
+            "Tensor emb_valid, Tensor pid, Tensor ex_stack, "
+            "Tensor nv_stack, Tensor npat_stack, Tensor mode_stack) "
+            "-> Tensor")
+_LIB.impl("match_count", match_signatures_batch_ref, "CPU")
+_LIB.impl("match_count", _match_count_cuda, "CUDA")
+torch.library.register_fake("repro_torch::match_count", _match_count_fake,
+                            lib=_LIB)
 
 
 def match_signatures_kernel(tokens, gid, phi, psi, emb_valid, existing,

@@ -132,21 +132,29 @@ def _unique_fixed(x: torch.Tensor, k: int):
     return_inverse=True)``: the sorted distinct values cut to ``k`` and
     padded with ``INVALID_SIG`` (a real -1 takes a slot like any value),
     and for each element its index into the *full* sorted distinct
-    values, so an element whose value was cut off gets an index >= k."""
-    full, inv = torch.unique(x, sorted=True, return_inverse=True)
-    uniq = torch.full((k,), int(INVALID_SIG), dtype=x.dtype, device=x.device)
-    n = min(k, full.numel())
-    uniq[:n] = full[:n]
-    return uniq, inv
+    values, so an element whose value was cut off gets an index >= k.
+    Every shape follows from ``x``'s and ``k`` (a sort, a running count
+    of new values and two scatters), so a ``FakeTensorMode`` trace runs
+    it as the device does."""
+    srt, order = torch.sort(x)
+    new = torch.ones_like(srt, dtype=torch.bool)
+    new[1:] = srt[1:] != srt[:-1]
+    rank = torch.cumsum(new, 0) - 1  # each sorted element's distinct index
+    inv = torch.empty_like(rank)
+    inv[order] = rank
+    uniq = torch.full((k + 1,), int(INVALID_SIG), dtype=x.dtype,
+                      device=x.device)
+    uniq[torch.where(new & (rank < k), rank, k)] = srt
+    return uniq[:k], inv
 
 
 def _segment_sum(vals: torch.Tensor, inv: torch.Tensor, k: int):
     """``jax.ops.segment_sum(vals, inv, num_segments=k)`` as int32: the
-    entries whose segment is >= k are dropped (``index_add_`` would
-    raise on them)."""
-    keep = inv < k
-    out = torch.zeros((k,), dtype=torch.int32, device=vals.device)
-    return out.index_add_(0, inv[keep], vals[keep].to(torch.int32))
+    entries whose segment is >= k are dropped (summed into a spare slot
+    past the end)."""
+    out = torch.zeros((k + 1,), dtype=torch.int32, device=vals.device)
+    slots = torch.where(inv < k, inv, k)
+    return out.index_add_(0, slots, vals.to(torch.int32))[:k]
 
 
 def _lexsort_pairs(sig: torch.Tensor, gid: torch.Tensor) -> torch.Tensor:

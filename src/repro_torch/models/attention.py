@@ -10,8 +10,9 @@ same residuals), so the transformer's remat bounds this to one
 superblock at a time.
 
 The JAX package pins shardings inside these functions
-(``constrain_dims``); eager single-device torch has no sharding to
-constrain, so here those are the identity.
+(``constrain_dims``, ``with_sharding_constraint``); here a constraint
+redistributes a DTensor (``launch.dryrun``'s auto-sharded cells) and is
+the identity on a plain tensor, which has no sharding to constrain.
 """
 from __future__ import annotations
 
@@ -19,17 +20,64 @@ import math
 
 import torch
 
+from .common import P, axes_size, spec_placements
+
 NEG_INF = -1e30
 
 
+def _is_dtensor(x) -> bool:
+    from torch.distributed.tensor import DTensor
+
+    return isinstance(x, DTensor)
+
+
 def constrain_dims(x, dim_axes):
-    """The identity: sharding constraints have no meaning on one device
-    in eager torch (JAX: ``with_sharding_constraint``)."""
-    return x
+    """``with_sharding_constraint(x, P(...))`` with ``dim_axes`` {dim:
+    mesh axes}: a DTensor is redistributed to that layout (every other
+    dim replicated); a dim its axes do not divide is left out, and a
+    plain tensor is returned as it is."""
+    if not dim_axes or not _is_dtensor(x):
+        return x
+    spec = [None] * x.ndim
+    any_set = False
+    for dim, axes in dim_axes.items():
+        if not axes:
+            continue
+        axes = axes if isinstance(axes, tuple) else (axes,)
+        if x.shape[dim] % axes_size(x.device_mesh, axes) != 0:
+            continue
+        spec[dim] = axes if len(axes) > 1 else axes[0]
+        any_set = True
+    if not any_set:
+        return x
+    return x.redistribute(x.device_mesh,
+                          spec_placements(P(*spec), x.device_mesh))
 
 
 def constrain_batch(x, batch_axes, dim: int = 0):
     return constrain_dims(x, {dim: batch_axes})
+
+
+def _on_local_blocks(fn, q, k, v, batch_axes, model_axes, **kw):
+    """``fn`` on each rank's block of DTensors q [B,S,H,hd], k/v
+    [B,S,KV,hd], as the JAX function's constraints partition it: batch
+    over ``batch_axes`` where it divides, heads over ``model_axes`` where
+    the kv heads divide (whole GQA groups per rank), the rest gathered;
+    attention is then independent per block.  Returns a DTensor."""
+    from torch.distributed.tensor import DTensor
+
+    mesh = q.device_mesh
+    model_axes, batch = tuple(model_axes), tuple(batch_axes)
+    spec = [None, None, None, None]
+    if batch and q.shape[0] % axes_size(mesh, batch) == 0:
+        spec[0] = batch if len(batch) > 1 else batch[0]
+    if k.shape[2] % axes_size(mesh, model_axes) == 0:
+        spec[2] = model_axes if len(model_axes) > 1 else model_axes[0]
+    place = spec_placements(P(*spec), mesh)
+    q, k, v = (x.redistribute(mesh, place) for x in (q, k, v))
+    out = fn(q.to_local(), k.to_local(), v.to_local(), **kw)
+    return DTensor.from_local(out, mesh, place, run_check=False,
+                              shape=q.shape, stride=q.stride())
 
 
 def _gqa_expand(q, n_kv):
@@ -62,9 +110,13 @@ def blockwise_causal_attention(q, k, v, *, block_q: int = 512,
     * "full" - the naive all-pairs grid (kept as the measured baseline).
 
     Masking is an additive [block_q, block_kv] penalty (0 or NEG_INF).
-    ``batch_axes`` and ``model_axes`` are accepted for the JAX signature
-    and unused (no sharding constraint on one device).
+    DTensor inputs run on each rank's block (``_on_local_blocks``).
     """
+    if _is_dtensor(q):
+        return _on_local_blocks(
+            blockwise_causal_attention, q, k, v, batch_axes, model_axes,
+            block_q=block_q, block_kv=block_kv, scale=scale,
+            schedule=schedule)
     b, s, h, hd = q.shape
     kv = k.shape[2]
     g = h // kv

@@ -10,8 +10,8 @@ Production-scale choices for a 10^6-item catalog, as in the JAX package:
 
 ``jax.lax.scan`` over the stacked blocks and over the catalog chunks
 becomes a loop.  ``torch.topk`` does not promise ``lax.top_k``'s order
-of exact ties (lower index first).  The vocab-sharded serve
-(``make_sharded_serve``) comes with the dry-run slice.
+of exact ties (lower index first).  ``make_sharded_serve`` is the serve
+over a ``DeviceMesh``, each "model" rank scoring its vocab shard.
 """
 from __future__ import annotations
 
@@ -20,6 +20,8 @@ import math
 from typing import Any, Dict
 
 import torch
+import torch.distributed as dist
+import torch.nn.functional as F
 
 from ..kernels import gather_rows, take_nan
 from .common import _ParamTree, normal_init
@@ -120,9 +122,15 @@ def _block(x, bp, pad, cfg: Bert4RecConfig):
 
 def encode(params, seq, cfg: Bert4RecConfig):
     """seq [B,S] item ids (0=PAD) -> hidden [B,S,D]."""
+    x = gather_rows(params["item_emb"], seq).to(cfg.compute_dtype)
+    return _encoder(params, x, seq, cfg)
+
+
+def _encoder(params, x, seq, cfg: Bert4RecConfig):
+    """The blocks and the final norm over the item embeddings ``x``
+    [B,S,D] of ``seq`` [B,S] (which places the pads)."""
     s = seq.shape[1]
     cdt = cfg.compute_dtype
-    x = gather_rows(params["item_emb"], seq).to(cdt)
     x = x + params["pos_emb"][None, :s].to(cdt)
     pad = seq == 0  # [B,S]
     for i in range(cfg.n_blocks):
@@ -178,15 +186,94 @@ def chunked_topk_scores(params, query, cfg: Bert4RecConfig):
     return best_s, best_i
 
 
+def _last(hidden, seq):
+    """The hidden state at each row's last non-pad position."""
+    lengths = torch.sum((seq > 0).to(torch.int32), -1)
+    return hidden[torch.arange(seq.shape[0], device=seq.device),
+                  torch.clamp(lengths - 1, min=0)]
+
+
 def serve_scores(params, batch, cfg: Bert4RecConfig):
     """Next-item scoring: encode session, score last position vs catalog."""
     seq = batch["seq"]
-    hidden = encode(params, seq, cfg)
-    # last non-pad position per row
-    lengths = torch.sum((seq > 0).to(torch.int32), -1)
-    last = hidden[torch.arange(seq.shape[0], device=seq.device),
-                  torch.clamp(lengths - 1, min=0)]
-    return chunked_topk_scores(params, last, cfg)
+    return chunked_topk_scores(params, _last(encode(params, seq, cfg), seq),
+                               cfg)
+
+
+def make_sharded_serve(cfg: Bert4RecConfig, mesh, dp_axes):
+    """The serve over ``mesh`` (a ``DeviceMesh`` with a "model" axis):
+    each "model" rank scores only its vocab shard and keeps a local
+    top-k; the only cross-shard traffic is the embedding all_reduce and
+    the [model, B, k] candidate merge.
+
+    Returns ``serve(params, batch) -> (scores [B/dp, k], ids [B/dp,
+    k])``, this rank's block of rows over ``dp_axes``.  Every rank passes
+    the same global params and ``batch["seq"]`` on its device and cuts
+    its blocks (its vocab shard of ``item_emb``, its rows of ``seq``), as
+    ``shard_map``'s input specs cut them in the JAX package.  As there,
+    and unlike ``serve_scores``: an id outside the vocab embeds as
+    zeros, and a shard is scored in whole chunks of ``min(v_chunk,
+    shard)`` rows, the last padded with zero rows whose ids run on past
+    the shard (score 0, masked only past ``n_items``)."""
+    from ..collectives import (all_gather, axes_index, check_device,
+                               rank_device, shard_block)
+
+    tp = mesh.size(mesh.mesh_dim_names.index("model"))
+    vocab = cfg.vocab
+    if vocab % tp:
+        raise ValueError(f"the vocab ({vocab}) does not divide into {tp} "
+                         f"model shards")
+    vshard = vocab // tp
+    dp_axes = tuple(dp_axes)
+    group = mesh.get_group("model")
+    device = rank_device(mesh)
+    cdt = cfg.compute_dtype
+    kk = cfg.topk
+    chunk = min(cfg.v_chunk, vshard)
+
+    def serve(params, batch):
+        seq = batch["seq"]
+        check_device(device, seq=seq, item_emb=params["item_emb"])
+        shard, _ = axes_index(mesh, ("model",))
+        row, n_rows = axes_index(mesh, dp_axes)
+        emb = params["item_emb"][shard_block(vocab, tp, shard, "the vocab")]
+        seq = seq[shard_block(seq.shape[0], n_rows, row, "batch rows")]
+        offset = shard * vshard
+        # vocab-sharded embedding lookup: partial take + all_reduce
+        ids = seq.long() - offset
+        ok = (ids >= 0) & (ids < vshard)
+        rows = emb[ids.clamp(0, vshard - 1)]
+        x = torch.where(ok[..., None], rows, 0.0)
+        dist.all_reduce(x, group=group)
+        query = _last(_encoder(params, x.to(cdt), seq, cfg), seq)
+
+        # local-vocab chunked top-k
+        b = query.shape[0]
+        best_s = torch.full((b, kk), -torch.inf, dtype=torch.float32,
+                            device=query.device)
+        best_i = torch.zeros((b, kk), dtype=torch.int32,
+                             device=query.device)
+        for lo in range(0, vshard, chunk):
+            tbl = emb[lo:lo + chunk]
+            tbl = F.pad(tbl, (0, 0, 0, chunk - tbl.shape[0])).to(cdt)
+            sc = torch.einsum("bd,cd->bc", query, tbl).float()
+            cid = torch.arange(offset + lo, offset + lo + chunk,
+                               dtype=torch.int32, device=query.device)
+            sc = torch.where((cid >= 1) & (cid <= cfg.n_items), sc,
+                             -torch.inf)
+            cat_s = torch.cat([best_s, sc], -1)
+            cat_i = torch.cat([best_i, cid.expand(b, -1)], -1)
+            best_s, idx = torch.topk(cat_s, kk, dim=-1)
+            best_i = torch.gather(cat_i, -1, idx)
+
+        # merge the tp local top-k lists (the only gather)
+        all_s = torch.stack(all_gather(best_s, group), 1).reshape(b, -1)
+        all_i = torch.stack(all_gather(best_i, group), 1).reshape(b, -1)
+        s_, idx = torch.topk(all_s, kk, dim=-1)
+        return s_, torch.gather(all_i, -1, idx)
+
+    serve.takes_global = True
+    return serve
 
 
 class Bert4Rec(_ParamTree):

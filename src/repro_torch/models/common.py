@@ -8,19 +8,27 @@ to it, and ``path_str`` joins it with "/" as the JAX package's
 ``path_str`` joins its key entries, so checkpoint keys and parameter
 names agree between the two packages.
 
-The sharding helpers of the JAX module (``dp_axes``,
-``resolve_template``, ``tree_param_specs``, ``guard_tree_specs``,
-``tree_shardings``) map parameter trees onto a device mesh; they come
-with the dry-run slice.
+Sharding is expressed as in the JAX module: an ordered list of
+(path-regex, spec template) rules (``Rules``); a template may name the
+symbolic axes "DATA" (every pure-DP axis: ``("pod", "data")`` on the
+multi-pod mesh, ``"data"`` on one pod - FSDP/ZeRO sharding) and "MODEL"
+(the tensor/expert-parallel axis).  ``resolve_template`` instantiates
+one for a ``DeviceMesh`` as a ``P`` (the port's ``PartitionSpec``), and
+``tree_shardings`` turns a tree of specs into DTensor placements, the
+counterpart of ``NamedSharding``.  The helpers read only the mesh's
+axis names and sizes.
 """
 from __future__ import annotations
 
-from typing import Any, Callable, List, Tuple
+import math
+import re
+from typing import Any, Callable, List, Sequence, Tuple
 
 import torch
 from torch import nn
 
 PyTree = Any
+Rules = List[Tuple[str, Tuple]]  # (regex, axis template tuple)
 
 
 def _is_namedtuple(x) -> bool:
@@ -111,6 +119,122 @@ def _at(tree, path):
 
 def path_str(path) -> str:
     return "/".join(str(k) for k in path)
+
+
+# -------------------------------------------------------------- sharding
+class P(tuple):
+    """``jax.sharding.PartitionSpec``: one entry per leading tensor dim,
+    each a mesh axis name, a tuple of names, or None (replicated).
+    Equal, as a tuple, to JAX's spec for the same template."""
+
+    def __new__(cls, *entries):
+        return super().__new__(cls, entries)
+
+    def __repr__(self) -> str:
+        return f"P{tuple(self)!r}"
+
+
+def _axis_names(mesh) -> Tuple[str, ...]:
+    return tuple(mesh.mesh_dim_names)
+
+
+def axes_size(mesh, ax) -> int:
+    """The number of shards a spec entry (a name or tuple) makes."""
+    names = _axis_names(mesh)
+    axes = ax if isinstance(ax, tuple) else (ax,)
+    return math.prod(mesh.size(names.index(a)) for a in axes)
+
+
+def dp_axes(mesh) -> Tuple[str, ...]:
+    return tuple(a for a in _axis_names(mesh) if a in ("pod", "data"))
+
+
+def _resolve_axis(ax, mesh):
+    if isinstance(ax, tuple):
+        out = []
+        for a in ax:
+            r = _resolve_axis(a, mesh)
+            if isinstance(r, tuple):
+                out.extend(r)
+            elif r is not None:
+                out.append(r)
+        return tuple(out)
+    if ax == "DATA":
+        axes = dp_axes(mesh)
+        return axes if len(axes) > 1 else axes[0]
+    if ax == "MODEL":
+        return "model"
+    return ax
+
+
+def resolve_template(tpl: Sequence, mesh) -> P:
+    return P(*[_resolve_axis(a, mesh) for a in tpl])
+
+
+def _guard(spec: Sequence, shape, mesh) -> P:
+    """``spec`` over a tensor of ``shape``: cut to its dims, and every
+    dim the entry's shard count does not divide replicated."""
+    entries = tuple(spec)[:len(shape)]
+    return P(*[None if ax is None or shape[d] % axes_size(mesh, ax)
+               else ax for d, ax in enumerate(entries)],
+             *[None] * (len(shape) - len(entries)))
+
+
+def tree_param_specs(tree: PyTree, rules: Rules, mesh) -> PyTree:
+    """Map every leaf to a ``P`` via the first rule whose regex matches
+    its ``path_str``; size-1 / indivisible dims fall back to
+    replication (e.g. quantized-optimizer scale tensors); no rule, P()."""
+    paths = tree_leaves_with_path(tree)
+    specs = []
+    for path, leaf in paths:
+        p = path_str(path)
+        spec = P()
+        for pat, tpl in rules:
+            if re.search(pat, p):
+                spec = _guard(resolve_template(tpl, mesh), leaf.shape, mesh)
+                break
+        specs.append(spec)
+    return tree_unflatten(tree, specs)
+
+
+def guard_tree_specs(args: PyTree, specs: PyTree, mesh) -> PyTree:
+    """Replace spec axes that do not evenly divide the argument dim with
+    replication (applied to batch/cache specs after template resolve)."""
+    return tree_unflatten(args, [
+        _guard(spec, leaf.shape, mesh) if isinstance(spec, P) else spec
+        for leaf, spec in zip(tree_leaves(args),
+                              tree_flatten_up_to(args, specs))])
+
+
+def spec_placements(spec: Sequence, mesh) -> list:
+    """A ``P`` as DTensor placements, one per mesh dim: ``Shard(d)`` on
+    every mesh axis that splits tensor dim ``d``, ``Replicate()`` on the
+    rest.  A dim split over several axes is JAX's block layout only
+    with the axes in mesh order; any other order raises."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    names = _axis_names(mesh)
+    out = [Replicate() for _ in names]
+    for d, ax in enumerate(spec):
+        if ax is None:
+            continue
+        axes = ax if isinstance(ax, tuple) else (ax,)
+        idx = [names.index(a) for a in axes]
+        if idx != sorted(idx):
+            raise ValueError(f"spec entry {ax} lists mesh axes out of the "
+                             f"mesh's order {names}")
+        for i in idx:
+            if not isinstance(out[i], Replicate):
+                raise ValueError(f"mesh axis {names[i]} splits two dims "
+                                 f"in {spec}")
+            out[i] = Shard(d)
+    return out
+
+
+def tree_shardings(tree: PyTree, rules: Rules, mesh) -> PyTree:
+    """The placements (``spec_placements``) of ``tree_param_specs``."""
+    specs = tree_flatten_up_to(tree, tree_param_specs(tree, rules, mesh))
+    return tree_unflatten(tree, [spec_placements(s, mesh) for s in specs])
 
 
 # ------------------------------------------------------------------ init

@@ -61,7 +61,7 @@ class TransformerConfig:
     logit_softcap: float = 0.0
     loss_chunk: int = 1024  # sequence chunking of the vocab projection
     attn_schedule: str = "triangular"  # or "full" (measured baseline)
-    batch_axes: tuple = ()  # DP mesh axes (no constraint on one device)
+    batch_axes: tuple = ()  # DP mesh axes for sharding constraints
 
     @property
     def n_super(self) -> int:
@@ -209,7 +209,9 @@ def forward(params, tokens, cfg: TransformerConfig):
     positions = torch.arange(s, device=tokens.device).expand(b, s)
 
     def block(x, i):
-        return _superblock(x, _layer(params, cfg, i), cfg, positions)
+        x, a = _superblock(x, _layer(params, cfg, i), cfg, positions)
+        # keep the residual stream batch-sharded between superblocks
+        return constrain_batch(x, cfg.batch_axes), a
 
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i in range(cfg.n_super):

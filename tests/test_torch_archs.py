@@ -180,7 +180,8 @@ def test_family_configs_equal(arch_id):
 def test_family_abstract_steps_and_counts(arch_id):
     """Per shape: the abstract params on ``meta`` and their count, the
     batch, the FLOPs, and the step's abstract args (train: params,
-    optimizer state, batch; score: params, batch) against JAX's."""
+    optimizer state, batch; score: params, batch) against JAX's; for
+    BERT4Rec, which serve the step takes over a mesh."""
     ja, ta = jreg.get_arch(arch_id), treg.get_arch(arch_id)
     for shape in ta.shapes:
         tp = ta.abstract_params(shape)
@@ -195,8 +196,31 @@ def test_family_abstract_steps_and_counts(arch_id):
         _, jargs = ja.make_step(shape)
         assert _shapes(targs) == _jshapes(jargs), shape
     if isinstance(ta, RecsysArch):
-        with pytest.raises(NotImplementedError, match="dry-run"):
-            ta.make_serve_step("serve_p99", mesh=object())
+        # over a mesh: the vocab-sharded serve where the DP size divides
+        # a batch of more than one row, else serve_scores (JAX's branch)
+        for sizes, shape, sharded in (((4, 2), "serve_p99", True),
+                                      ((4, 2), "retrieval_cand", False),
+                                      ((3, 2), "serve_p99", False)):
+            step, targs = ta.make_serve_step(shape, mesh=_Mesh(sizes))
+            assert getattr(step, "takes_global", False) == sharded, shape
+            assert _shapes(targs) == _jshapes(ja.make_step(shape)[1])
+
+
+class _Mesh:
+    """A ("data", "model") stand-in for a ``DeviceMesh``: the names and
+    sizes the arch reads, and no process group."""
+
+    mesh_dim_names = ("data", "model")
+    device_type = "cpu"
+
+    def __init__(self, sizes):
+        self._sizes = sizes
+
+    def size(self, dim):
+        return self._sizes[dim]
+
+    def get_group(self, name):
+        return None
 
 
 @pytest.mark.parametrize("arch_id", FAMILY_IDS)

@@ -46,16 +46,25 @@ SURFACES = {
     "repro.configs.base": "repro_torch.configs.base",
     "repro.configs.families": "repro_torch.configs.families",
     "repro.configs.registry": "repro_torch.configs.registry",
+    "repro.roofline.analysis": "repro_torch.roofline.analysis",
+    "repro.launch.dryrun": "repro_torch.launch.dryrun",
 }
 # Names of a mirrored module that a later slice of the port brings, and
-# nothing else: the dry-run's sharding helpers and the vocab-sharded
-# BERT4Rec serve over a mesh (the dry-run slice).
-LATER_SLICES = {
-    "repro.models.common": {"Rules", "dp_axes", "resolve_template",
-                            "tree_param_specs", "guard_tree_specs",
-                            "tree_shardings"},
-    "repro.configs.base": {"resolve_batch", "opt_state_specs"},
-    "repro.models.bert4rec": {"make_sharded_serve"},
+# nothing else (every slice has come).
+LATER_SLICES = {}
+# Names of a mirrored module that get no counterpart in the port, each
+# with the reason; the port does not define them.
+NO_COUNTERPART = {
+    "repro.roofline.analysis": {
+        "from_compiled": "reads XLA's compiled executable (cost_analysis, "
+                         "HLO); the port's roofline is from_counts over "
+                         "the dry run's traced ops",
+        "parse_collectives": "parses XLA's HLO text; the port sums the "
+                             "traced collectives' result bytes "
+                             "(count_collective)",
+        "ICI_BW": "the TPU's inter-chip link rate; the card's is LINK_BW "
+                  "(NVLink)",
+    },
 }
 
 
@@ -79,7 +88,8 @@ def test_import_leaves_jax_and_repro_unloaded():
         "repro_torch.training.train_loop, repro_torch.models.gnn, "
         "repro_torch.models.mace, repro_torch.models.bert4rec, "
         "repro_torch.models.embedding, repro_torch.data.graphs, "
-        "repro_torch.data.recsys\n"
+        "repro_torch.data.recsys, repro_torch.launch.dryrun, "
+        "repro_torch.roofline.analysis\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro'))\n"
         "print(bad)\n"
@@ -128,9 +138,11 @@ def _public_names(module: str):
 @pytest.mark.parametrize("module", sorted(SURFACES))
 def test_port_mirrors_public_surface(module):
     """``from <port counterpart> import X`` works for every public X of
-    the JAX module but those listed in ``LATER_SLICES``, and none of
-    those exists yet (the list stays exact)."""
-    later = LATER_SLICES.get(module, set())
+    the JAX module but those listed in ``LATER_SLICES`` or
+    ``NO_COUNTERPART``, and none of those exists (the lists stay
+    exact)."""
+    later = LATER_SLICES.get(module, set()) | set(
+        NO_COUNTERPART.get(module, {}))
     names = _public_names(module)
     assert names, module
     assert later <= set(names), later - set(names)

@@ -2,11 +2,15 @@
 converted (``models.convert``): ``encode``, the sampled-softmax
 ``masked_item_loss`` and its grads within 1e-4; ``chunked_topk_scores``
 and ``serve_scores``: the same ids and scores within 1e-5 on inputs
-without ties; and ``examples/recsys_patterns.py``'s chain (mine, serve,
+without ties; ``examples/recsys_patterns.py``'s chain (mine, serve,
 EmbeddingBag, chunked top-k) at the example's own demo config: the same
-feature matrix and top-k ids."""
+feature matrix and top-k ids; and the vocab-sharded serve on a gloo
+world of 8 ranks (4 data x 2 model) against JAX's on 8 virtual CPU
+devices."""
 import importlib.util
 import os
+import subprocess
+import sys
 
 import jax
 import jax.numpy as jnp
@@ -23,6 +27,7 @@ from repro_torch.models.common import path_str, tree_leaves_with_path, \
     value_and_grad
 from repro_torch.models.convert import params_from_numpy, tree_from_numpy
 import torch_family_checks as fc
+from torch_dist_worker import recsys_serve_job, run_world
 
 TOL, TOPK_TOL = 1e-4, 1e-5
 EXAMPLE = os.path.join(os.path.dirname(__file__), "..", "examples",
@@ -171,3 +176,81 @@ def test_integration_path_matches_example():
     np.testing.assert_array_equal(got["ids"].numpy(), np.asarray(ji))
     np.testing.assert_allclose(got["scores"].numpy(), np.asarray(js),
                                rtol=TOPK_TOL, atol=TOPK_TOL)
+
+
+SHARDED_CFG = dict(name="b", n_items=298, seq_len=16, v_chunk=64, topk=7)
+JAX_SHARDED = r"""
+import os, sys
+os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=8"
+sys.path.insert(0, "src")
+import json
+import numpy as np
+import jax, jax.numpy as jnp
+from repro.models import bert4rec as jb4r
+
+inputs, cfg_kw, out_path = sys.argv[1], json.loads(sys.argv[2]), sys.argv[3]
+a = np.load(inputs)
+params = {}
+for key in a.files:
+    if key == "seq":
+        continue
+    *outer, leaf = key.split("/")
+    d = params
+    for k in outer:
+        d = d.setdefault(k, {})
+    d[leaf] = jnp.asarray(a[key])
+cfg = jb4r.Bert4RecConfig(**cfg_kw)
+mesh = jax.make_mesh((4, 2), ("data", "model"))
+serve = jb4r.make_sharded_serve(cfg, mesh, ("data",))
+s, i = serve(params, {"seq": jnp.asarray(a["seq"])})
+np.savez(out_path, scores=np.asarray(s), ids=np.asarray(i))
+print("JAX-B4R-SHARDED-OK")
+"""
+
+
+def test_sharded_serve_matches_jax(tmp_path):
+    """``make_sharded_serve`` on 8 gloo ranks, mesh (4, 2): each rank's
+    block of rows equals the JAX serve's on 8 devices (ids equal, scores
+    within 1e-5; the catalog's 150-row shards end in a padded chunk);
+    the arch's serve step over the mesh takes the sharded serve at batch
+    512 and ``serve_scores`` at batch 1."""
+    import json
+
+    jc, tc = _cfgs(**SHARDED_CFG)
+    jp = jb4r.init_params(jax.random.PRNGKey(5), jc)
+    rng = np.random.default_rng(6)
+    seq = rng.integers(1, jc.n_items + 1, (8, jc.seq_len))
+    seq[1, 4:] = 0
+    seq[6, 1:] = 0
+    arrays = {path_str(p): v for p, v in
+              tree_leaves_with_path(jax.tree.map(np.asarray, jp))}
+    arrays["seq"] = seq.astype(np.int32)
+    inputs = str(tmp_path / "inputs.npz")
+    np.savez(inputs, **arrays)
+    out = str(tmp_path / "jax.npz")
+    env = dict(os.environ)
+    env.pop("XLA_FLAGS", None)
+    proc = subprocess.run(
+        [sys.executable, "-c", JAX_SHARDED, inputs, json.dumps(
+            SHARDED_CFG), out], capture_output=True, text=True,
+        timeout=600, cwd=os.path.join(os.path.dirname(__file__), ".."),
+        env=env)
+    assert "JAX-B4R-SHARDED-OK" in proc.stdout, proc.stdout + proc.stderr
+    want = np.load(out)
+    ranks = run_world(recsys_serve_job, 8, str(tmp_path), inputs,
+                      SHARDED_CFG, 2, "cpu")
+    assert sorted((int(r["row"]), int(r["model"])) for r in ranks) == \
+        [(d, m) for d in range(4) for m in range(2)]
+    for r in ranks:
+        rows = slice(2 * int(r["row"]), 2 * int(r["row"]) + 2)
+        np.testing.assert_array_equal(r["ids"], want["ids"][rows])
+        np.testing.assert_allclose(r["scores"], want["scores"][rows],
+                                   rtol=TOPK_TOL, atol=TOPK_TOL)
+        assert r["many_global"] and not r["one_global"]
+        np.testing.assert_array_equal(r["one_ids"], r["ref_ids"])
+        np.testing.assert_array_equal(r["one_scores"], r["ref_scores"])
+    # the unsharded serve agrees where no id falls in a padded chunk
+    ts, ti = tb4r.serve_scores(params_from_numpy(
+        jax.tree.map(np.asarray, jp), tc).tree(),
+        {"seq": torch.tensor(arrays["seq"])}, tc)
+    np.testing.assert_array_equal(ti.detach().numpy(), want["ids"])

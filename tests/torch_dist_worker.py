@@ -115,6 +115,82 @@ def serving_job(inputs: str, cases, device: str) -> dict:
     return out
 
 
+def recsys_serve_job(inputs, cfg_kw: dict, model: int, device: str,
+                     repeats: int = 0) -> dict:
+    """The port's vocab-sharded BERT4Rec serve on a data x ``model``
+    mesh: every rank passes the global params and ``seq`` and returns its
+    block.  ``inputs`` is an npz of the params by path and ``seq``, or
+    None: the params drawn on the CPU from seed 0 and ``seq`` from
+    numpy's seed 0 (``b4r_inputs``).  With ``repeats`` the ms of each
+    of that many calls, synchronized.  Also the arch's serve step over
+    the mesh at batch 1 (``serve_scores``) and at batch 512."""
+    from repro_torch.collectives import axes_index, rank_device
+    from repro_torch.configs.families import RecsysArch
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import bert4rec as b4r
+    from repro_torch.models.common import dp_axes
+
+    cfg = b4r.Bert4RecConfig(**cfg_kw)
+    mesh = make_host_mesh(model=model, device=device)
+    dev = rank_device(mesh)
+    params, seq = b4r_inputs(cfg, inputs, dev)
+    serve = b4r.make_sharded_serve(cfg, mesh, dp_axes(mesh))
+    with torch.no_grad():
+        s, i = serve(params, {"seq": seq})
+        ms = []
+        for _ in range(repeats):
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            serve(params, {"seq": seq})
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+            ms.append((time.perf_counter() - t0) * 1e3)
+        arch = RecsysArch(cfg, cfg)
+        one, _ = arch.make_serve_step("retrieval_cand", mesh)
+        s1, i1 = one(params, {"seq": seq[:1]})
+        r1 = b4r.serve_scores(params, {"seq": seq[:1]}, cfg)
+        many, _ = arch.make_serve_step("serve_p99", mesh)
+    row, n_rows = axes_index(mesh, dp_axes(mesh))
+    return {"scores": s.cpu().numpy(), "ids": i.cpu().numpy(),
+            "row": np.int64(row), "n_rows": np.int64(n_rows),
+            "model": np.int64(axes_index(mesh, ("model",))[0]),
+            "ms": np.array(ms),
+            "one_scores": s1.cpu().numpy(), "one_ids": i1.cpu().numpy(),
+            "ref_scores": r1[0].cpu().numpy(), "ref_ids": r1[1].cpu().numpy(),
+            "one_global": np.bool_(getattr(one, "takes_global", False)),
+            "many_global": np.bool_(getattr(many, "takes_global", False))}
+
+
+def b4r_inputs(cfg, inputs, device, batch: int = 512):
+    """(params, seq) for ``recsys_serve_job`` on ``device``: from the npz
+    ``inputs`` (params by path, "seq"), or drawn from seed 0 with
+    ``batch`` sessions of random length."""
+    from repro_torch.models import bert4rec as b4r
+    from repro_torch.models.common import path_str, tree_leaves_with_path, \
+        tree_unflatten
+
+    if inputs is None:
+        params = b4r.init_params(torch.Generator().manual_seed(0), cfg,
+                                 torch.device("cpu"))
+        rng = np.random.default_rng(0)
+        seq = rng.integers(1, cfg.n_items + 1, (batch, cfg.seq_len))
+        seq[np.arange(cfg.seq_len) >= rng.integers(
+            1, cfg.seq_len + 1, batch)[:, None]] = 0
+        seq = torch.as_tensor(seq.astype(np.int32))
+    else:
+        arrays = np.load(inputs)
+        shape = b4r.abstract_params(cfg)
+        params = tree_unflatten(shape, [
+            torch.from_numpy(arrays[path_str(p)])
+            for p, _ in tree_leaves_with_path(shape)])
+        seq = torch.from_numpy(arrays["seq"])
+    params = {k: ({kk: vv.to(device) for kk, vv in v.items()}
+                  if isinstance(v, dict) else v.to(device))
+              for k, v in params.items()}
+    return params, seq.to(device)
+
+
 def _rank_main(rank, world, backend, store, out_dir, job, args):
     dist.init_process_group(backend, init_method=f"file://{store}",
                             rank=rank, world_size=world)
