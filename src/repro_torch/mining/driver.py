@@ -36,6 +36,16 @@ are timed separately - ``dispatch_seconds`` stops when the call
 returns (input copies + launch), ``device_seconds`` after
 ``torch.cuda.synchronize()`` (the real device time); the result is
 copied to the host after both.
+
+Spans (``obs.trace``): a job is ``mining.prepare`` (the constructor's
+DB encode and token upload) and ``mining.mine``, whose slices are
+``mining.wavefront`` spans.  Inside a slice: ``mining.encode`` (the
+slice's pattern and embedding encode, then each chunk's padding),
+``mining.upload`` (one per host-to-device copy), the measured
+``mining.dispatch`` / ``mining.device`` intervals of each chunk,
+``mining.aggregate`` (each chunk's signatures read back and merged),
+and per item ``mining.children``, holding a ``mining.rebuild`` per
+rebuilt child, which holds its ``mining.materialize``.
 """
 from __future__ import annotations
 
@@ -117,10 +127,11 @@ class AcceleratedMiner:
         # padding of the pattern axis bounds the set of chunk shapes)
         self.wave_patterns = wave_patterns
         self.wave_rows = 4 * e_batch if wave_rows is None else wave_rows
-        self.tdb: TokenDB = encode_db(db)
-        # the device copy, made once; the host keeps self.tdb.tokens for
-        # the embedding rebuild
-        self.tokens = torch.from_numpy(self.tdb.tokens).to(self.device)
+        with trace.root_or_span("mining.prepare"):
+            self.tdb: TokenDB = encode_db(db)
+            # the device copy, made once; the host keeps self.tdb.tokens
+            # for the embedding rebuild
+            self.tokens = self._to_device(self.tdb.tokens)
         # counters live in a registry (private by default; pass
         # ``metrics=`` to accumulate across miner rebuilds, e.g. the
         # streaming bank's incremental refreshes)
@@ -133,10 +144,6 @@ class AcceleratedMiner:
             f"{metrics_ns}.n_device_calls")
         self._h_wave = self.metrics.histogram(
             f"{metrics_ns}.wave_patterns")
-        # always-on latency percentiles: wall (launch + blocked) per
-        # packed device chunk, log-scale buckets
-        self._h_wave_s = self.metrics.bucket_histogram(
-            f"{metrics_ns}.wave_seconds")
 
     # registry-backed views of the historical timing attributes
     @property
@@ -154,7 +161,9 @@ class AcceleratedMiner:
         return self._c_calls.value
 
     def _to_device(self, a: np.ndarray) -> torch.Tensor:
-        return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+        """One host-to-device copy: one ``mining.upload`` span."""
+        with trace.span("mining.upload", "dispatch"):
+            return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
 
     # ------------------------------------------------------------- phases
     @staticmethod
@@ -179,55 +188,57 @@ class AcceleratedMiner:
         local to the item's embedding list, plus the item's encoded row
         arrays for the vectorized embedding rebuild."""
         n = len(items)
-        n_pad = _pow2_pad(n)
-        nv_stack = np.zeros(n_pad, np.int32)
-        npat_stack = np.zeros(n_pad, np.int32)
-        mode_stack = np.zeros(n_pad, np.int32)
-        ex_stack = np.full((n_pad, MAX_PATTERN_TRS, 5), -9, np.int32)
-        for i, (pattern, _) in enumerate(items):
-            nv_stack[i] = len(pattern_vertices(pattern))
-            npat_stack[i] = len(pattern)
-            mode_stack[i] = modes[i]
-            ex_stack[i] = encode_pattern_trs(pattern, MAX_PATTERN_TRS)
+        with trace.span("mining.encode"):
+            n_pad = _pow2_pad(n)
+            nv_stack = np.zeros(n_pad, np.int32)
+            npat_stack = np.zeros(n_pad, np.int32)
+            mode_stack = np.zeros(n_pad, np.int32)
+            ex_stack = np.full((n_pad, MAX_PATTERN_TRS, 5), -9, np.int32)
+            for i, (pattern, _) in enumerate(items):
+                nv_stack[i] = len(pattern_vertices(pattern))
+                npat_stack[i] = len(pattern)
+                mode_stack[i] = modes[i]
+                ex_stack[i] = encode_pattern_trs(pattern, MAX_PATTERN_TRS)
+            enc: List[Enc] = [
+                encode_embeddings(embs, self.ni, self.nv)
+                for _, embs in items
+            ]
+            lens = np.asarray([len(embs) for _, embs in items], np.int64)
+            offs = np.cumsum(lens) - lens
+            R = int(lens.sum())
+            if R:
+                gid_all = np.concatenate([e[0] for e in enc])
+                phi_all = np.concatenate([e[1] for e in enc])
+                psi_all = np.concatenate([e[2] for e in enc])
+                pid_all = np.repeat(np.arange(n, dtype=np.int32), lens)
         ex_j = self._to_device(ex_stack)
         nv_j = self._to_device(nv_stack)
         npat_j = self._to_device(npat_stack)
         mode_j = self._to_device(mode_stack)
-
-        enc: List[Enc] = [
-            encode_embeddings(embs, self.ni, self.nv)
-            for _, embs in items
-        ]
-        lens = np.asarray([len(embs) for _, embs in items], np.int64)
-        offs = np.cumsum(lens) - lens
-        R = int(lens.sum())
         merged: List[Dict[int, Tuple[Set[int], List[np.ndarray]]]] = [
             {} for _ in items
         ]
         if R == 0:
             return merged, enc
-        gid_all = np.concatenate([e[0] for e in enc])
-        phi_all = np.concatenate([e[1] for e in enc])
-        psi_all = np.concatenate([e[2] for e in enc])
-        pid_all = np.repeat(np.arange(n, dtype=np.int32), lens)
 
         for start in range(0, R, self.e_batch):
             E = min(self.e_batch, R - start)
-            Epad = _pow2_pad(E, cap=self.e_batch)
-            sl = slice(start, start + E)
-            gid = gid_all[sl]
-            phi = phi_all[sl]
-            psi = psi_all[sl]
-            pid = pid_all[sl]
-            if Epad > E:
-                gid = np.pad(gid, (0, Epad - E))
-                phi = np.pad(phi, ((0, Epad - E), (0, 0)),
-                             constant_values=PAD_PHI)
-                psi = np.pad(psi, ((0, Epad - E), (0, 0)),
-                             constant_values=PAD_PSI)
-                pid = np.pad(pid, (0, Epad - E))
-            valid = np.zeros((Epad,), np.int32)
-            valid[:E] = 1
+            with trace.span("mining.encode"):
+                Epad = _pow2_pad(E, cap=self.e_batch)
+                sl = slice(start, start + E)
+                gid = gid_all[sl]
+                phi = phi_all[sl]
+                psi = psi_all[sl]
+                pid = pid_all[sl]
+                if Epad > E:
+                    gid = np.pad(gid, (0, Epad - E))
+                    phi = np.pad(phi, ((0, Epad - E), (0, 0)),
+                                 constant_values=PAD_PHI)
+                    psi = np.pad(psi, ((0, Epad - E), (0, 0)),
+                                 constant_values=PAD_PSI)
+                    pid = np.pad(pid, (0, Epad - E))
+                valid = np.zeros((Epad,), np.int32)
+                valid[:E] = 1
             t0 = time.perf_counter()
             sigs = match_signatures_batch(
                 self.tokens,
@@ -244,24 +255,24 @@ class AcceleratedMiner:
             t2 = time.perf_counter()
             self._c_device_s.inc(t2 - t0)
             self._c_calls.inc()
-            self._h_wave_s.observe(t2 - t0)
             # intervals are measured above regardless of tracing, so
             # recording them cannot perturb the timing they describe
             trace.add_complete("mining.dispatch", "dispatch",
                                t0, t1 - t0, rows=int(Epad))
             trace.add_complete("mining.device", "device", t1, t2 - t1)
-            for (pi, sig), (gset, et) in aggregate_host_batch(
-                sigs.cpu().numpy(), gid, pid
-            ).items():
-                et = et.copy()
-                # chunk-local row -> this item's embedding index
-                et[:, 0] += start - offs[pi]
-                got = merged[pi].get(sig)
-                if got is None:
-                    merged[pi][sig] = (gset, [et])
-                else:
-                    got[0].update(gset)
-                    got[1].append(et)
+            with trace.span("mining.aggregate"):
+                for (pi, sig), (gset, et) in aggregate_host_batch(
+                    sigs.cpu().numpy(), gid, pid
+                ).items():
+                    et = et.copy()
+                    # chunk-local row -> this item's embedding index
+                    et[:, 0] += start - offs[pi]
+                    got = merged[pi].get(sig)
+                    if got is None:
+                        merged[pi][sig] = (gset, [et])
+                    else:
+                        got[0].update(gset)
+                        got[1].append(et)
         return merged, enc
 
     # -------------------------------------------------- embedding rebuild
@@ -329,14 +340,15 @@ class AcceleratedMiner:
             rows = variants[0]
         _, first = np.unique(rows, axis=0, return_index=True)
         rows = rows[np.sort(first)]  # dedup, first-seen order
-        return [
-            (
-                int(r[0]),
-                tuple(int(x) for x in r[1:1 + n_phi]),
-                tuple(enumerate(int(x) for x in r[1 + n_phi:])),
-            )
-            for r in rows
-        ]
+        with trace.span("mining.materialize"):
+            return [
+                (
+                    int(r[0]),
+                    tuple(int(x) for x in r[1:1 + n_phi]),
+                    tuple(enumerate(int(x) for x in r[1 + n_phi:])),
+                )
+                for r in rows
+            ]
 
     # -------------------------------------------------- child expansion
     def _children_from_merged(
@@ -370,9 +382,10 @@ class AcceleratedMiner:
                 continue
             key = signature_to_extkey(sig)
             child_raw = apply_extension(pattern, key)
-            child_embs = self._rebuild_embeddings(
-                pattern, enc, sig, et_rows, child_raw
-            )
+            with trace.span("mining.rebuild"):
+                child_embs = self._rebuild_embeddings(
+                    pattern, enc, sig, et_rows, child_raw
+                )
             out.append((child, gids, child_embs))
         return out
 
@@ -402,9 +415,10 @@ class AcceleratedMiner:
         modes = [self._phase_mode(p, rs) for _, p, _ in live]
         merged, enc = self._scan_batch([(p, e) for _, p, e in live], modes)
         for (i, p, _), m, enc_i in zip(live, merged, enc):
-            out[i] = self._children_from_merged(
-                p, enc_i, m, min_support, rs, want_embs
-            )
+            with trace.span("mining.children"):
+                out[i] = self._children_from_merged(
+                    p, enc_i, m, min_support, rs, want_embs
+                )
         return out
 
     def expand_children(

@@ -49,6 +49,17 @@ budget ``check_bench.py`` gates.  Kept traces are counted
 in the registry passed to ``enable_sampling``) and fed to the optional
 ``FlightRecorder``.
 
+**Profiler ranges** (``enable(profiler_ranges=True)`` or
+``enable_sampling(..., profiler_ranges=True)``; off by default): every
+span that ``span()`` or a kept ``root_or_span()`` records also opens a
+``torch.profiler.record_function`` range of the same name around the
+same region, so under a recording torch profiler the spans land in its
+trace on its own clock, beside the kernels they launch.  ``torch`` is
+imported only when the option is turned on.  Intervals recorded after
+the fact (``add_complete``: the miner's ``mining.dispatch`` /
+``mining.device``, ``server._fence``'s halves) and unsampled tail roots
+(whether one is kept is known only at its end) get no range.
+
 Export: ``save(path)`` writes Chrome ``traceEvents`` JSON for ``.json``
 paths (load in ``chrome://tracing`` / Perfetto) and one-span-per-line
 JSONL otherwise; ``scripts/trace_report.py`` reads both.
@@ -85,8 +96,20 @@ class _NoopSpan:
 _NOOP = _NoopSpan()
 
 
+def _open_range(tracer: "Tracer", name: str):
+    """The profiler range mirroring a span, entered; None when the
+    option is off or no profiler is recording on this thread."""
+    if tracer.ranges is None:
+        return None
+    r = tracer.ranges(name)
+    if r is not None:
+        r.__enter__()
+    return r
+
+
 class _Span:
-    __slots__ = ("_tracer", "name", "cat", "args", "_t0", "_token")
+    __slots__ = ("_tracer", "name", "cat", "args", "_t0", "_token",
+                 "_range")
 
     def __init__(self, tracer: "Tracer", name: str, cat: str,
                  args: Dict[str, Any], new_trace: bool):
@@ -99,13 +122,18 @@ class _Span:
             _current_trace.set(tracer._next_trace_id())
             if new_trace else None
         )
-        self._t0 = tracer.clock()
 
     def __enter__(self) -> "_Span":
+        # the range opens before the clock is read and closes after it,
+        # so ranges nest as their spans do
+        self._range = _open_range(self._tracer, self.name)
+        self._t0 = self._tracer.clock()
         return self
 
     def __exit__(self, *exc) -> bool:
         t1 = self._tracer.clock()
+        if self._range is not None:
+            self._range.__exit__(*exc)
         self._tracer._record(
             self.name, self.cat, self._t0, t1 - self._t0, self.args
         )
@@ -133,7 +161,7 @@ class _SampledRoot:
     WITHOUT setting ``_full`` - so ``_fence`` stays async."""
 
     __slots__ = ("_tracer", "name", "args", "_t0", "_token", "_ev0",
-                 "anomaly")
+                 "anomaly", "_range")
 
     def __init__(self, tracer: "Tracer", name: str,
                  args: Dict[str, Any]):
@@ -145,14 +173,17 @@ class _SampledRoot:
         self._ev0 = len(tracer.events)
         tracer.enabled = True
         tracer._root = self
-        self._t0 = tracer.clock()
 
     def __enter__(self) -> "_SampledRoot":
+        self._range = _open_range(self._tracer, self.name)
+        self._t0 = self._tracer.clock()
         return self
 
     def __exit__(self, *exc) -> bool:
         tr = self._tracer
         t1 = tr.clock()
+        if self._range is not None:
+            self._range.__exit__(*exc)
         dur = t1 - self._t0
         args = dict(self.args)
         if self.anomaly:
@@ -237,23 +268,44 @@ class Tracer:
         self._root = None      # active sampled/tail root (mark target)
         self.metrics = None    # Optional[MetricsRegistry]
         self.flight = None     # Optional[FlightRecorder]
+        # name -> profiler range (None while no profiler records) when
+        # profiler ranges are on; None when they are off
+        self.ranges = None
 
     # ------------------------------------------------------- lifecycle
-    def enable(self) -> None:
-        """Full tracing: every span recorded, device spans fenced."""
+    def _set_ranges(self, on: bool) -> None:
+        if not on:
+            self.ranges = None
+            return
+        import torch
+        from torch.profiler import record_function
+
+        # a range costs microseconds even with no profiler recording;
+        # the profiler's own flag is one C call
+        recording = torch.autograd._profiler_enabled
+        self.ranges = (lambda name: record_function(name)
+                       if recording() else None)
+
+    def enable(self, *, profiler_ranges: bool = False) -> None:
+        """Full tracing: every span recorded, device spans fenced;
+        ``profiler_ranges`` mirrors each span as a profiler range."""
         self.enabled = True
         self._full = True
         self.sampling = None
+        self._set_ranges(profiler_ranges)
         if not self.events:
             self._t_base = self.clock()
 
     def enable_sampling(self, rate: float, *,
                         latency_threshold: Optional[float] = None,
-                        metrics=None, flight=None) -> None:
+                        metrics=None, flight=None,
+                        profiler_ranges: bool = False) -> None:
         """Always-on mode: keep ~``rate`` of root-span trees plus every
         tail/anomalous root, never fence.  ``metrics`` (a
         ``MetricsRegistry``) receives the ``obs.*`` keep counters;
-        ``flight`` (a ``FlightRecorder``) receives kept traces."""
+        ``flight`` (a ``FlightRecorder``) receives kept traces;
+        ``profiler_ranges`` mirrors each kept span as a profiler
+        range."""
         self.sampling = SamplingConfig(
             rate=float(rate), latency_threshold=latency_threshold
         )
@@ -262,6 +314,7 @@ class Tracer:
         self.flight = flight
         self.enabled = False
         self._full = False
+        self._set_ranges(profiler_ranges)
         if not self.events:
             self._t_base = self.clock()
 
@@ -269,6 +322,7 @@ class Tracer:
         self.enabled = False
         self._full = False
         self.sampling = None
+        self.ranges = None
         self._root = None
         self.metrics = None
         self.flight = None
@@ -373,15 +427,17 @@ def sampling() -> Optional[SamplingConfig]:
     return tracer.sampling
 
 
-def enable() -> None:
-    tracer.enable()
+def enable(*, profiler_ranges: bool = False) -> None:
+    tracer.enable(profiler_ranges=profiler_ranges)
 
 
 def enable_sampling(rate: float, *,
                     latency_threshold: Optional[float] = None,
-                    metrics=None, flight=None) -> None:
+                    metrics=None, flight=None,
+                    profiler_ranges: bool = False) -> None:
     tracer.enable_sampling(rate, latency_threshold=latency_threshold,
-                           metrics=metrics, flight=flight)
+                           metrics=metrics, flight=flight,
+                           profiler_ranges=profiler_ranges)
 
 
 def disable() -> None:

@@ -49,7 +49,8 @@ and deterministic, trie and flat joins are bit-identical in both
 
 Counters: ``predicate_calls`` counts the calls of the predicate made
 by ``_step_once`` and ``fused_walks`` the calls of the fused walk; on
-a CUDA device each is one kernel launch.
+a CUDA device each is one kernel launch.  Each ``_step_once`` call is
+one ``serving.step`` span (``obs.trace``), in every layout.
 """
 from __future__ import annotations
 
@@ -64,6 +65,7 @@ from ..kernels.trie_walk import ref as _fused_ref
 from ..kernels.trie_walk.ref import gather_rows
 from ..kernels.trie_walk.ops import trie_walk_cells
 from ..mining.encoding import PAD_PHI, PAD_PSI
+from ..obs import trace
 from .trie import REQ_MASKED
 
 # the kernels layer mirrors the serving constants locally (it stays
@@ -199,6 +201,18 @@ def _step_ranges(cell_b, step_k, *, n_seq, n_keys, ni, nv):
             ok[..., 0:2], c[..., 5])
 
 
+def _spanned(name: str):
+    """Run the decorated function inside one ``obs.trace`` span."""
+    def wrap(fn):
+        @functools.wraps(fn)
+        def inner(*args, **kw):
+            with trace.span(name):
+                return fn(*args, **kw)
+        return inner
+    return wrap
+
+
+@_spanned("serving.step")
 def _step_once(tokens, order, start, count, cell_b, step_k, phi, psi,
                valid, *, emax, tmax, uniform, compact,
                count_frontier_ovf=False, ranges=None):

@@ -521,7 +521,9 @@ class PatternServer:
         the old synchronous batch, bit for bit."""
         with trace.span("serving.finalize_rows", n=len(flight.seqs),
                         layout=flight.layout):
-            get_layout(flight.layout).finalize(self, flight)
+            # the layout's finalize is the join outputs' device reads
+            with trace.span("serving.readback"):
+                get_layout(flight.layout).finalize(self, flight)
             self._resolve_undecided(
                 flight.tokens, flight.order, flight.start,
                 flight.count, flight.tmax, flight.contained,
@@ -684,8 +686,9 @@ class PatternServer:
             # queries are the interesting ones
             trace.mark("overflow_escalated")
             if self.emax_retry > self.emax:
-                self.layout.escalate(self, tokens, order, start, count,
-                                     tmax, contained, ovf)
+                with trace.span("serving.escalate"):
+                    self.layout.escalate(self, tokens, order, start,
+                                         count, tmax, contained, ovf)
         with trace.span("serving.oracle"):
             for b, p in zip(*np.nonzero(ovf & ~contained)):
                 contained[b, p] = contains(bank.patterns[p], seqs[b])

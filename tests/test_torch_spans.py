@@ -1,0 +1,234 @@
+"""The port's spans inside mining and serving, on the CPU: which spans a
+job and a batch record, how they nest, what their counts equal (the
+miner's copies, the predicate calls), that results are bit-identical
+with tracing off, sampled and full, and that the profiler-range option
+mirrors every recorded span as a same-name profiler range, and only
+with it on."""
+import collections
+import json
+import os
+import random
+import tempfile
+
+import numpy as np
+import pytest
+from torch.profiler import ProfilerActivity, profile
+
+from repro_torch.core.compile import compile_sequence
+from repro_torch.data.synthetic import random_graph_sequence
+from repro_torch.mining.driver import AcceleratedMiner
+from repro_torch.obs import trace
+from repro_torch.serving import batch
+from repro_torch.serving.bank import compile_bank
+from repro_torch.serving.server import PatternServer
+
+MINING_SPANS = ("mining.prepare", "mining.encode", "mining.upload",
+                "mining.aggregate", "mining.children", "mining.rebuild",
+                "mining.materialize")
+LAYOUTS = ("flat", "trie", "trie_fused")
+
+
+def _db(seed, n_seq, n_steps=4, n_v=4):
+    rng = random.Random(seed)
+    return [compile_sequence(random_graph_sequence(rng, n_steps=n_steps,
+                                                   n_v=n_v, n_vl=2, n_el=2))
+            for _ in range(n_seq)]
+
+
+@pytest.fixture(scope="module")
+def db():
+    return _db(3, 10)
+
+
+@pytest.fixture(scope="module")
+def queries():
+    return _db(4, 24, n_steps=5, n_v=5)
+
+
+@pytest.fixture(scope="module")
+def bank(db):
+    return compile_bank(AcceleratedMiner(db, device="cpu").mine_rs(2,
+                                                                   max_len=4))
+
+
+def _run(mode, fn, **kw):
+    """``fn()`` with tracing ``off``, ``sampled`` (rate 1) or ``full``;
+    returns its result and the recorded spans."""
+    trace.clear()
+    if mode == "sampled":
+        trace.enable_sampling(1.0, **kw)
+    elif mode == "full":
+        trace.enable(**kw)
+    try:
+        out = fn()
+        return out, list(trace.tracer.events)
+    finally:
+        trace.disable()
+        trace.clear()
+
+
+def _parents(events):
+    """Each span's innermost enclosing span (None at the top), by the
+    same nesting sweep the trace reports use."""
+    order = sorted(range(len(events)),
+                   key=lambda i: (events[i]["ts"], -events[i]["dur"]))
+    parent = [None] * len(events)
+    stack = []
+    for i in order:
+        ev = events[i]
+        while stack and (events[stack[-1]]["ts"]
+                         + events[stack[-1]]["dur"]) <= ev["ts"] + 1e-6:
+            stack.pop()
+        if stack:
+            parent[i] = events[stack[-1]]["name"]
+        stack.append(i)
+    return parent
+
+
+def _mine(db):
+    miner = AcceleratedMiner(db, device="cpu")
+    res = miner.mine_rs(2, max_len=4)
+    return res, miner.n_device_calls
+
+
+def test_a_mining_job_records_every_span_nested_and_one_upload_a_copy(db):
+    (res, n_calls), ev = _run("sampled", lambda: _mine(db))
+    names = collections.Counter(e["name"] for e in ev)
+    for name in MINING_SPANS:
+        assert names[name] > 0, name
+    parent = _parents(ev)
+    of = collections.defaultdict(set)
+    for e, p in zip(ev, parent):
+        of[e["name"]].add(p)
+    assert of["mining.materialize"] == {"mining.rebuild"}
+    assert of["mining.rebuild"] == {"mining.children"}
+    assert of["mining.children"] == {"mining.wavefront"}
+    assert of["mining.aggregate"] == {"mining.wavefront"}
+    # the constructor is a job's first root: nothing of a job is unspanned
+    assert of["mining.prepare"] == {None} and of["mining.mine"] == {None}
+    # the chunk uploads sit inside the measured dispatch interval
+    assert of["mining.upload"] == {"mining.prepare", "mining.wavefront",
+                                   "mining.dispatch"}
+    slices = names["mining.wavefront"]
+    assert names["mining.upload"] == 1 + 4 * slices + 5 * n_calls
+    assert names["mining.aggregate"] == n_calls
+    assert names["mining.encode"] == slices + n_calls
+    assert names["mining.rebuild"] == names["mining.materialize"]
+    assert len(res.patterns) > 0
+
+
+def _serve(bank, queries, **kw):
+    srv = PatternServer(bank, device="cpu", max_batch=8, **kw)
+    p0 = batch.predicate_calls
+    out = srv.query(queries)
+    rows = np.stack([r.contained for r in out])
+    return rows, batch.predicate_calls - p0, dict(srv.stats)
+
+
+@pytest.mark.parametrize("layout", LAYOUTS)
+@pytest.mark.parametrize("emax", [1, 4, 16])
+def test_serving_steps_equal_the_predicate_calls(bank, queries, layout,
+                                                 emax):
+    """emax 1 forces undecided (``ovf & ~contained``) cells, 16 leaves
+    none at this size: the replay's span appears only with them."""
+    (rows, calls, stats), ev = _run("sampled", lambda: _serve(
+        bank, queries, emax=emax, emax_retry=2 * emax,
+        bank_layout=layout))
+    names = collections.Counter(e["name"] for e in ev)
+    assert names["serving.step"] == calls
+    if layout != "trie_fused" or emax == 1:
+        assert calls > 0
+    # one read back a batch; the replay only where a cell was undecided
+    assert names["serving.readback"] == stats["device_batches"] > 0
+    assert (names["serving.escalate"] > 0) == (stats["escalated_cells"] > 0)
+    if emax == 1:
+        assert stats["escalated_cells"] > 0
+    if emax == 16:
+        assert stats["escalated_cells"] == 0
+    parent = dict(zip((id(e) for e in ev), _parents(ev)))
+    for e in ev:
+        if e["name"] == "serving.escalate":
+            assert parent[id(e)] == "serving.finalize_rows"
+        if e["name"] == "serving.readback":
+            assert parent[id(e)] == "serving.finalize_rows"
+
+
+@pytest.mark.parametrize("mode,ranges", [("sampled", False),
+                                         ("full", False),
+                                         ("sampled", True)])
+def test_results_are_bit_identical_with_tracing_off_sampled_and_full(
+        db, bank, queries, mode, ranges):
+    kw = {"profiler_ranges": ranges}
+    (res0, calls0), _ = _run("off", lambda: _mine(db))
+    (res1, calls1), ev = _run(mode, lambda: _mine(db), **kw)
+    assert ev and res1.patterns == res0.patterns and calls1 == calls0
+    for layout in LAYOUTS:
+        (rows0, p0, _), _ = _run("off", lambda: _serve(
+            bank, queries, emax=1, bank_layout=layout))
+        (rows1, p1, _), ev = _run(mode, lambda: _serve(
+            bank, queries, emax=1, bank_layout=layout), **kw)
+        assert ev and p1 == p0
+        np.testing.assert_array_equal(rows1, rows0)
+
+
+def _annotations(prof):
+    fd, path = tempfile.mkstemp(suffix=".json")
+    os.close(fd)
+    try:
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            doc = json.load(f)
+    finally:
+        os.unlink(path)
+    return collections.Counter(
+        e["name"] for e in doc.get("traceEvents", [])
+        if e.get("ph") == "X" and e.get("cat") == "user_annotation")
+
+
+@pytest.mark.parametrize("mode,ranges", [("sampled", True),
+                                         ("sampled", False),
+                                         ("full", True)])
+def test_profiler_ranges_mirror_every_recorded_span(db, bank, queries,
+                                                    monkeypatch, mode,
+                                                    ranges):
+    """With the option on, each span recorded by ``span`` or
+    ``root_or_span`` has one same-name profiler range; intervals added
+    after the fact (``add_complete``) have none.  With it off, no span
+    has a range."""
+    after = collections.Counter()
+    add = trace.tracer.add_complete
+
+    def counted(name, cat, start, duration, **args):
+        if trace.tracer.enabled:
+            after[name] += 1
+        add(name, cat, start, duration, **args)
+
+    monkeypatch.setattr(trace.tracer, "add_complete", counted)
+
+    def work():
+        _mine(db)
+        _serve(bank, queries, emax=1, bank_layout="flat")
+
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        _, ev = _run(mode, work, profiler_ranges=ranges)
+    got = _annotations(prof)
+    spans = collections.Counter(e["name"] for e in ev)
+    assert spans["mining.upload"] and spans["serving.step"]
+    if ranges:
+        assert got == spans - after
+    else:
+        assert not set(got) & set(spans)
+
+
+def test_the_range_option_is_off_by_default():
+    trace.enable_sampling(1.0)
+    try:
+        assert trace.tracer.ranges is None
+    finally:
+        trace.disable()
+    trace.enable(profiler_ranges=True)
+    try:
+        assert trace.tracer.ranges is not None
+    finally:
+        trace.disable()
+    assert trace.tracer.ranges is None
