@@ -15,7 +15,7 @@ from __future__ import annotations
 
 import os
 import tempfile
-from typing import Dict, List, Tuple
+from typing import Dict, List, Tuple, Union
 
 import zlib
 
@@ -26,6 +26,7 @@ except ImportError:  # optional dep: fall back to stdlib zlib
 
 from ..core.enumerate_host import Emb
 from ..core.graphseq import Pattern, TR, TRType
+from .encoding import EmbBlock
 
 _ZSTD_MAGIC = b"\x28\xb5\x2f\xfd"
 
@@ -68,15 +69,21 @@ def _emb_from_wire(w) -> Emb:
 def save_state(
     path: str,
     patterns: Dict[Pattern, int],
-    stack: List[Tuple[Pattern, List[Emb]]],
+    stack: List[Tuple[Pattern, Union[EmbBlock, List[Emb]]]],
     meta: dict | None = None,
 ) -> None:
+    """Write the state atomically.  A stack entry's embeddings are an
+    ``EmbBlock`` (the miner's work pool) or a list of ``Emb`` tuples;
+    both go on the wire as tuples (version 1: gid, phi without pads,
+    psi as ``[pv, dv]`` pairs), so either loads alike."""
     payload = {
         "version": 1,
         "meta": meta or {},
         "patterns": [[_pattern_to_wire(p), s] for p, s in patterns.items()],
         "stack": [
-            [_pattern_to_wire(p), [_emb_to_wire(e) for e in embs]]
+            [_pattern_to_wire(p),
+             [_emb_to_wire(e) for e in (
+                 embs.to_embs() if isinstance(embs, EmbBlock) else embs)]]
             for p, embs in stack
         ],
     }
@@ -99,6 +106,8 @@ def save_state(
 
 
 def load_state(path: str):
+    """``(patterns, stack, meta)``; the stack's embeddings are lists of
+    ``Emb`` tuples, which the miner encodes into blocks on resume."""
     import msgpack
 
     with open(path, "rb") as f:

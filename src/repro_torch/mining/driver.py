@@ -40,19 +40,30 @@ copied to the host after both.
 Spans (``obs.trace``): a job is ``mining.prepare`` (the constructor's
 DB encode and token upload) and ``mining.mine``, whose slices are
 ``mining.wavefront`` spans.  Inside a slice: ``mining.encode`` (the
-slice's pattern and embedding encode, then each chunk's padding),
-``mining.upload`` (one per host-to-device copy), the measured
+slice's pattern encode and its blocks' concatenation, then each chunk's
+padding), ``mining.upload`` (one per host-to-device copy), the measured
 ``mining.dispatch`` / ``mining.device`` intervals of each chunk,
 ``mining.aggregate`` (each chunk's signatures read back and merged),
 and per item ``mining.children``, holding a ``mining.rebuild`` per
-rebuilt child, which holds its ``mining.materialize``.
+rebuilt child.
+
+The work pool holds each pattern's embeddings as an ``EmbBlock`` (the
+padded int32 ``gid`` / ``phi`` / ``psi`` rows the scans read): a child's
+rows are rebuilt straight into its block, and a slice's blocks are
+concatenated into the chunks, so no row becomes a Python ``Emb`` tuple
+on the way.  ``Emb`` lists are taken at the public entries
+(``expand_children*``, a resumed checkpoint) and encoded once there.
+Counters: ``mining.emb_rows`` (rows rebuilt into blocks) and
+``mining.emb_decoded`` (rows decoded back into ``Emb`` tuples: only a
+checkpoint's save does that).
 """
 from __future__ import annotations
 
 import math
 import time
 from collections import deque
-from typing import Callable, Dict, List, Optional, Sequence, Set, Tuple
+from typing import (Callable, Dict, List, Optional, Sequence, Set, Tuple,
+                    Union)
 
 import numpy as np
 import torch
@@ -68,9 +79,9 @@ from ..kernels import DeviceLike, resolve_device
 from .encoding import (
     PAD_PHI,
     PAD_PSI,
+    EmbBlock,
     TokenDB,
     encode_db,
-    encode_embeddings,
     encode_pattern_trs,
     signature_to_extkey,
 )
@@ -85,8 +96,8 @@ from .engine import (
 
 MAX_PATTERN_TRS = 64
 
-# encoded row arrays of one pattern's embedding list: (gid, phi, psi)
-Enc = Tuple[np.ndarray, np.ndarray, np.ndarray]
+# a child as the expansions return it: (pattern, gids, its embeddings)
+Child = Tuple[Pattern, Set[int], EmbBlock]
 
 
 def _pow2_pad(n: int, cap: Optional[int] = None) -> int:
@@ -144,6 +155,11 @@ class AcceleratedMiner:
             f"{metrics_ns}.n_device_calls")
         self._h_wave = self.metrics.histogram(
             f"{metrics_ns}.wave_patterns")
+        self._c_emb_rows = self.metrics.counter(f"{metrics_ns}.emb_rows")
+        self._c_emb_decoded = self.metrics.counter(
+            f"{metrics_ns}.emb_decoded")
+        # what a child pruned by ``want_embs`` comes back with
+        self._no_embs = EmbBlock.from_embs([], self.ni, self.nv)
 
     # registry-backed views of the historical timing attributes
     @property
@@ -178,15 +194,13 @@ class AcceleratedMiner:
 
     # ------------------------------------------------------------- scans
     def _scan_batch(
-        self, items: List[Tuple[Pattern, List[Emb]]], modes: List[int]
-    ) -> Tuple[List[Dict[int, Tuple[Set[int], List[np.ndarray]]]],
-               List[Enc]]:
+        self, items: List[Tuple[Pattern, EmbBlock]], modes: List[int]
+    ) -> List[Dict[int, Tuple[Set[int], List[np.ndarray]]]]:
         """Run the device scans for a wavefront slice: all items' rows
         are packed into shared pow-2 chunks (a chunk freely spans
         pattern boundaries) and each chunk is ONE device dispatch.
         Returns, per item, ``{sig: (gid_set, (e,t) rows)}`` with ``e``
-        local to the item's embedding list, plus the item's encoded row
-        arrays for the vectorized embedding rebuild."""
+        local to the item's embedding block."""
         n = len(items)
         with trace.span("mining.encode"):
             n_pad = _pow2_pad(n)
@@ -199,17 +213,13 @@ class AcceleratedMiner:
                 npat_stack[i] = len(pattern)
                 mode_stack[i] = modes[i]
                 ex_stack[i] = encode_pattern_trs(pattern, MAX_PATTERN_TRS)
-            enc: List[Enc] = [
-                encode_embeddings(embs, self.ni, self.nv)
-                for _, embs in items
-            ]
-            lens = np.asarray([len(embs) for _, embs in items], np.int64)
+            lens = np.asarray([len(b) for _, b in items], np.int64)
             offs = np.cumsum(lens) - lens
             R = int(lens.sum())
             if R:
-                gid_all = np.concatenate([e[0] for e in enc])
-                phi_all = np.concatenate([e[1] for e in enc])
-                psi_all = np.concatenate([e[2] for e in enc])
+                gid_all = np.concatenate([b.gid for _, b in items])
+                phi_all = np.concatenate([b.phi for _, b in items])
+                psi_all = np.concatenate([b.psi for _, b in items])
                 pid_all = np.repeat(np.arange(n, dtype=np.int32), lens)
         ex_j = self._to_device(ex_stack)
         nv_j = self._to_device(nv_stack)
@@ -219,7 +229,7 @@ class AcceleratedMiner:
             {} for _ in items
         ]
         if R == 0:
-            return merged, enc
+            return merged
 
         for start in range(0, R, self.e_batch):
             E = min(self.e_batch, R - start)
@@ -273,28 +283,27 @@ class AcceleratedMiner:
                     else:
                         got[0].update(gset)
                         got[1].append(et)
-        return merged, enc
+        return merged
 
     # -------------------------------------------------- embedding rebuild
     def _rebuild_embeddings(
         self,
         pattern: Pattern,
-        enc: Enc,
+        block: EmbBlock,
         sig: int,
         et_rows: List[np.ndarray],
         child_raw: Pattern,
-    ) -> List[Emb]:
+    ) -> EmbBlock:
         """Vectorized child-embedding rebuild: phi insertion, the psi
-        variant construction, canonical remap, and first-seen dedup are
-        numpy column ops over the whole (e,t) row set (the extension key
-        - and therefore the variant case - is constant per signature, so
-        the only per-row Python left is materializing the final Emb
-        tuples from the deduped rows)."""
+        variant construction, canonical remap, first-seen dedup and the
+        padded block are numpy column ops over the whole (e,t) row set
+        (the extension key - and therefore the variant case - is
+        constant per signature, so no Python runs per row)."""
         (slot_kind, slot_idx), ptr = signature_to_extkey(sig)
         nv = len(pattern_vertices(pattern))
         n_pat = len(pattern)
         vmap = canonical_map(child_raw)
-        gid_all, phi_all, psi_all = enc
+        gid_all, phi_all, psi_all = block.gid, block.phi, block.psi
         et = np.concatenate(et_rows, axis=0)
         e_i, t_i = et[:, 0], et[:, 1]
         gids_r = gid_all[e_i].astype(np.int64)
@@ -340,26 +349,24 @@ class AcceleratedMiner:
             rows = variants[0]
         _, first = np.unique(rows, axis=0, return_index=True)
         rows = rows[np.sort(first)]  # dedup, first-seen order
-        with trace.span("mining.materialize"):
-            return [
-                (
-                    int(r[0]),
-                    tuple(int(x) for x in r[1:1 + n_phi]),
-                    tuple(enumerate(int(x) for x in r[1 + n_phi:])),
-                )
-                for r in rows
-            ]
+        E = len(rows)
+        self._c_emb_rows.inc(E)
+        phi = np.full((E, self.ni), PAD_PHI, np.int32)
+        phi[:, :n_phi] = rows[:, 1:1 + n_phi]
+        psi = np.full((E, self.nv), PAD_PSI, np.int32)
+        psi[:, :nv_child] = rows[:, 1 + n_phi:]
+        return EmbBlock(rows[:, 0].astype(np.int32), phi, psi)
 
     # -------------------------------------------------- child expansion
     def _children_from_merged(
         self,
         pattern: Pattern,
-        enc: Enc,
+        block: EmbBlock,
         merged: Dict[int, Tuple[Set[int], List[np.ndarray]]],
         min_support: int,
         rs: bool,
         want_embs: Optional[Callable[[Pattern], bool]],
-    ) -> List[Tuple[Pattern, Set[int], List[Emb]]]:
+    ) -> List[Child]:
         by_child: Dict[Pattern, Tuple[Set[int], int, List[np.ndarray]]] = {}
         for sig, (gset, et_rows) in merged.items():
             key = signature_to_extkey(sig)
@@ -371,68 +378,75 @@ class AcceleratedMiner:
                 by_child[child][0].update(gset)
             else:
                 by_child[child] = (set(gset), sig, et_rows)
-        out: List[Tuple[Pattern, Set[int], List[Emb]]] = []
+        out: List[Child] = []
         for child, (gids, sig, et_rows) in by_child.items():
             if len(gids) < min_support:
                 continue
             if rs and parent(child) != pattern:
                 continue  # reverse-search membership test
             if want_embs is not None and not want_embs(child):
-                out.append((child, gids, []))
+                out.append((child, gids, self._no_embs))
                 continue
             key = signature_to_extkey(sig)
             child_raw = apply_extension(pattern, key)
             with trace.span("mining.rebuild"):
                 child_embs = self._rebuild_embeddings(
-                    pattern, enc, sig, et_rows, child_raw
+                    pattern, block, sig, et_rows, child_raw
                 )
             out.append((child, gids, child_embs))
         return out
 
     def expand_children_batch(
         self,
-        items: Sequence[Tuple[Pattern, List[Emb]]],
+        items: Sequence[Tuple[Pattern, Union[EmbBlock, List[Emb]]]],
         min_support: int,
         *,
         rs: bool = True,
         want_embs: Optional[Callable[[Pattern], bool]] = None,
-    ) -> List[List[Tuple[Pattern, Set[int], List[Emb]]]]:
+    ) -> List[List[Child]]:
         """One batched expansion of a whole wavefront slice: every
         item's DB scan shares the packed device chunks (see
         ``_scan_batch``); the result is per-item, aligned with
         ``items``, each entry exactly what ``expand_children`` would
-        have returned for that item alone.  Items at the itemset
+        have returned for that item alone.  An item's embeddings are an
+        ``EmbBlock`` or a list of ``Emb`` tuples (encoded once here);
+        children come back with ``EmbBlock``s.  Items at the itemset
         capacity come back empty (same guard as the single-item path)."""
-        out: List[List[Tuple[Pattern, Set[int], List[Emb]]]] = [
-            [] for _ in items
-        ]
+        out: List[List[Child]] = [[] for _ in items]
         live = [
-            (i, p, e) for i, (p, e) in enumerate(items)
+            (i, p, self._as_block(e)) for i, (p, e) in enumerate(items)
             if len(p) < self.ni
         ]
         if not live:
             return out
         modes = [self._phase_mode(p, rs) for _, p, _ in live]
-        merged, enc = self._scan_batch([(p, e) for _, p, e in live], modes)
-        for (i, p, _), m, enc_i in zip(live, merged, enc):
+        merged = self._scan_batch([(p, b) for _, p, b in live], modes)
+        for (i, p, b), m in zip(live, merged):
             with trace.span("mining.children"):
                 out[i] = self._children_from_merged(
-                    p, enc_i, m, min_support, rs, want_embs
+                    p, b, m, min_support, rs, want_embs
                 )
         return out
+
+    def _as_block(self, embs: Union[EmbBlock, List[Emb]]) -> EmbBlock:
+        if isinstance(embs, EmbBlock):
+            return embs
+        return EmbBlock.from_embs(embs, self.ni, self.nv)
 
     def expand_children(
         self,
         pattern: Pattern,
-        embs: List[Emb],
+        embs: Union[EmbBlock, List[Emb]],
         min_support: int,
         *,
         rs: bool = True,
         want_embs: Optional[Callable[[Pattern], bool]] = None,
-    ) -> List[Tuple[Pattern, Set[int], List[Emb]]]:
+    ) -> List[Child]:
         """One reverse-search (or baseline tail-growth) expansion: scan
         the DB for one-TR extensions of ``pattern`` and return its
-        frequent children as ``(child, gids, child_embs)``.  ``gids`` is
+        frequent children as ``(child, gids, child_embs)``, the child's
+        embeddings as an ``EmbBlock`` (``embs`` is a block or a list of
+        ``Emb`` tuples, the root's ``[(g, (), ()) ...]``).  ``gids`` is
         the exact set of DB sequences containing the child (supports are
         ``len(gids)``; the streaming layer turns these into window
         containment bitmaps without a separate join).
@@ -446,7 +460,7 @@ class AcceleratedMiner:
         chunks across patterns).  ``want_embs(child)`` lets callers skip
         the embedding rebuild for children whose subtree they will not
         descend into (the clean-subtree prune); such children come back
-        with ``[]``.  Respects the miner's itemset/vertex capacity
+        with an empty block.  Respects the miner's itemset/vertex capacity
         guards."""
         return self.expand_children_batch(
             [(pattern, embs)], min_support, rs=rs, want_embs=want_embs
@@ -455,17 +469,17 @@ class AcceleratedMiner:
     # ------------------------------------------------------------ mining
     def _take_slice(
         self,
-        pending: "deque[Tuple[Pattern, List[Emb]]]",
+        pending: "deque[Tuple[Pattern, EmbBlock]]",
         max_len: Optional[int],
         wavefront: bool,
-    ) -> List[Tuple[Pattern, List[Emb]]]:
+    ) -> List[Tuple[Pattern, EmbBlock]]:
         """Pop the next expansion slice off the work pool, applying the
         length/capacity guards exactly as the seed stack loop did.
         Wavefront mode drains FIFO up to the slice bounds (many
         patterns, one batched call); pattern mode pops LIFO one at a
         time (the seed's per-pattern dispatch, kept as the benchmark
         baseline)."""
-        items: List[Tuple[Pattern, List[Emb]]] = []
+        items: List[Tuple[Pattern, EmbBlock]] = []
         rows = 0
         while pending:
             pattern, embs = (
@@ -497,15 +511,13 @@ class AcceleratedMiner:
         from .checkpoint import load_state, save_state
 
         res = MiningResult()
-        root: Tuple[Pattern, List[Emb]] = (
-            (), [(g, (), ()) for g in range(len(self.db))]
-        )
-        pending: "deque[Tuple[Pattern, List[Emb]]]" = deque([root])
+        root = ((), EmbBlock.root(len(self.db), self.ni, self.nv))
+        pending: "deque[Tuple[Pattern, EmbBlock]]" = deque([root])
         if resume and checkpoint_path:
             patterns, stack, meta = load_state(checkpoint_path)
             res.patterns.update(patterns)
             res.n_enumerated = meta.get("n_enumerated", len(patterns))
-            pending = deque(stack)
+            pending = deque((p, self._as_block(e)) for p, e in stack)
         # canonical dedup is baseline-only (rs children are unique by
         # the membership test); skip their embedding rebuilds too
         want = (
@@ -538,6 +550,9 @@ class AcceleratedMiner:
                     and expansions_since_ckpt >= checkpoint_every
                 ):
                     with trace.span("mining.checkpoint"):
+                        # the wire holds Emb tuples: every row is decoded
+                        self._c_emb_decoded.inc(
+                            sum(len(b) for _, b in pending))
                         save_state(
                             checkpoint_path, res.patterns,
                             list(pending),

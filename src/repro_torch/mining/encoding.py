@@ -109,6 +109,48 @@ def encode_embeddings(
     return gid, phi, psi
 
 
+@dataclasses.dataclass(frozen=True)
+class EmbBlock:
+    """One pattern's embedding list as the padded int32 rows the scans
+    read: ``gid`` [E], ``phi`` [E, NI] (``PAD_PHI`` beyond the pattern's
+    itemsets), ``psi`` [E, NV] (``PAD_PSI`` beyond its vertices) - what
+    ``encode_embeddings`` gives for the same ``Emb`` list.  The miner's
+    work pool holds these, so a rebuilt child's rows go to its next scan
+    without passing through Python tuples."""
+
+    gid: np.ndarray
+    phi: np.ndarray
+    psi: np.ndarray
+
+    def __len__(self) -> int:
+        return self.gid.shape[0]
+
+    @classmethod
+    def from_embs(cls, embs: Sequence[Emb], ni: int, nv: int) -> "EmbBlock":
+        return cls(*encode_embeddings(embs, ni, nv))
+
+    @classmethod
+    def root(cls, n_seq: int, ni: int, nv: int) -> "EmbBlock":
+        """The empty pattern's embeddings: one unbound row a sequence."""
+        return cls(np.arange(n_seq, dtype=np.int32),
+                   np.full((n_seq, ni), PAD_PHI, dtype=np.int32),
+                   np.full((n_seq, nv), PAD_PSI, dtype=np.int32))
+
+    def to_embs(self) -> List[Emb]:
+        """The ``Emb`` tuples these rows encode, ``psi`` as
+        ``(pattern vertex, data vertex)`` pairs over the bound vertices
+        (a pattern binds its vertices 0..m-1, so the pads are a row's
+        tail)."""
+        n_phi = int((self.phi != PAD_PHI).sum(axis=1).max(initial=0))
+        n_psi = int((self.psi != PAD_PSI).sum(axis=1).max(initial=0))
+        return [
+            (int(g), tuple(ph), tuple(enumerate(ps)))
+            for g, ph, ps in zip(self.gid.tolist(),
+                                 self.phi[:, :n_phi].tolist(),
+                                 self.psi[:, :n_psi].tolist())
+        ]
+
+
 def encode_pattern_trs(p: Pattern, max_rows: int) -> np.ndarray:
     """[(itemset, type, pu1, pu2, label)] rows, padded with -9."""
     rows = []

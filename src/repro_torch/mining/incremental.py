@@ -69,6 +69,7 @@ import numpy as np
 from ..core.graphseq import Pattern, TRSeq, pattern_length
 from ..core.reverse_search import parent
 from .driver import AcceleratedMiner
+from .encoding import EmbBlock
 
 
 @functools.lru_cache(maxsize=1 << 16)
@@ -203,7 +204,7 @@ def refresh_frontier(
     # packed device chunks, so streaming refresh() and the sharded
     # reconcile get the cross-pattern batching for free
     root: Pattern = ()
-    pending = deque([(root, [(g, (), ()) for g in range(len(db))])])
+    pending = deque([(root, EmbBlock.root(len(db), miner.ni, miner.nv))])
     while pending:
         items = miner._take_slice(pending, max_len, wavefront=True)
         if not items:

@@ -5,6 +5,7 @@ import os
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 try:
@@ -16,10 +17,13 @@ from conftest import random_db
 from repro.core.gtrace import mine_gtrace as j_mine_gtrace
 from repro.core.reverse_search import mine_gtrace_rs as j_mine_rs
 from repro.mining.driver import AcceleratedMiner as JaxMiner
+from repro.mining.encoding import encode_embeddings as j_encode_embeddings
 
-from repro_torch.core.graphseq import db_from_reference, pattern_key
+from repro_torch.core.graphseq import (TR, TRType, db_from_reference,
+                                       pattern_key, pattern_length)
 from repro_torch.mining import checkpoint as ckpt
 from repro_torch.mining.driver import AcceleratedMiner
+from repro_torch.mining.encoding import EmbBlock
 
 SRC = os.path.join(os.path.dirname(__file__), "..", "src")
 
@@ -123,3 +127,94 @@ def test_launcher_both_on_cpu():
         env=env, capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert "GTRACE.relevant() == GTRACE-RS  (verified)" in proc.stdout
+
+
+def _port_pattern(jp):
+    return tuple(frozenset(TR(TRType(t), u1, u2, lab) for t, u1, u2, lab in s)
+                 for s in pattern_key(jp))
+
+
+@pytest.mark.parametrize("seed", [3, 11, 29])
+def test_block_path_equals_jax_rows(seed):
+    """Every child block of a whole max_len 4 walk holds, in order, the
+    rows of the JAX miner's Emb list for the same parent and rows; the
+    counters see every rebuilt row and no decoded one."""
+    jdb = random_db(seed, n_seq=8, n_steps=5, n_v=5)
+    jm = JaxMiner(jdb)
+    tm = AcceleratedMiner(db_from_reference(jdb), device="cpu")
+    wave = [((), EmbBlock.root(len(jdb), tm.ni, tm.nv), (),
+             [(g, (), ()) for g in range(len(jdb))])]
+    rows = n_children = 0
+    while wave:
+        kids = tm.expand_children_batch([(p, b) for p, b, _, _ in wave], 2)
+        nxt = []
+        for (_, _, jp, jembs), tkids in zip(wave, kids):
+            want = {pattern_key(c): (c, g, e)
+                    for c, g, e in jm.expand_children(jp, jembs, 2)}
+            assert sorted(pattern_key(c) for c, _, _ in tkids) == \
+                sorted(want)
+            for child, gids, block in tkids:
+                jc, jgids, jce = want[pattern_key(child)]
+                assert gids == jgids
+                for got, ref in zip((block.gid, block.phi, block.psi),
+                                    j_encode_embeddings(jce, tm.ni, tm.nv)):
+                    assert got.dtype == ref.dtype == np.int32
+                    np.testing.assert_array_equal(got, ref)
+                rows += len(block)
+                n_children += 1
+                if pattern_length(child) < 4:
+                    nxt.append((child, block, jc, jce))
+        wave = nxt
+    assert n_children > 0
+    snap = tm.metrics.snapshot()
+    assert snap["mining.emb_rows"] == rows
+    assert snap["mining.emb_decoded"] == 0
+    job = AcceleratedMiner(db_from_reference(jdb), device="cpu")
+    assert len(job.mine_rs(2, max_len=4).patterns) == n_children
+    assert job.metrics.snapshot()["mining.emb_rows"] == rows
+    assert job.metrics.snapshot()["mining.emb_decoded"] == 0
+
+
+def _payload(path):
+    with open(path, "rb") as f:
+        return ckpt._decompress(f.read())
+
+
+def test_checkpoint_of_emb_tuples_resumes_and_blocks_write_it_alike(
+        tmp_path):
+    """A work stack of Emb tuples, as the miner's checkpoints held them
+    before its pool held blocks, resumes to the uninterrupted map; the
+    same stack as blocks writes the same payload and loads back to the
+    same tuples; a checkpointing job decodes its pool's rows."""
+    jdb = random_db(17, n_seq=8, n_steps=5, n_v=5)
+    db = db_from_reference(jdb)
+    full = AcceleratedMiner(db, device="cpu").mine_rs(2, max_len=5)
+    jkids = JaxMiner(jdb).expand_children(
+        (), [(g, (), ()) for g in range(len(db))], 2)
+    patterns = {_port_pattern(c): len(g) for c, g, _ in jkids}
+    tuples = [(_port_pattern(c), e) for c, _, e in jkids]
+    assert tuples and all(e for _, e in tuples)
+    meta = {"min_support": 2, "rs": True, "n_enumerated": len(patterns)}
+    old, new = str(tmp_path / "tuples.ckpt"), str(tmp_path / "blocks.ckpt")
+    ckpt.save_state(old, patterns, tuples, meta=meta)
+
+    m = AcceleratedMiner(db, device="cpu")
+    blocks = {c: b for c, _, b in m.expand_children((), EmbBlock.root(
+        len(db), m.ni, m.nv), 2)}
+    assert [blocks[c].to_embs() for c, _ in tuples] == \
+        [e for _, e in tuples]
+    ckpt.save_state(new, patterns, [(c, blocks[c]) for c, _ in tuples],
+                    meta=meta)
+    assert _payload(new) == _payload(old)
+    got_patterns, stack, got_meta = ckpt.load_state(new)
+    assert (got_patterns, stack, got_meta) == (patterns, tuples, meta)
+
+    resumed = AcceleratedMiner(db, device="cpu")._mine(
+        2, 5, rs=True, checkpoint_path=old, resume=True)
+    assert resumed.patterns == full.patterns
+
+    job = AcceleratedMiner(db, wave_patterns=1, device="cpu")
+    res = job._mine(2, 5, rs=True, checkpoint_path=str(tmp_path / "j.ckpt"),
+                    checkpoint_every=1)
+    assert res.patterns == full.patterns
+    assert job.metrics.snapshot()["mining.emb_decoded"] > 0
