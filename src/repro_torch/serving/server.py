@@ -558,12 +558,13 @@ class PatternServer:
         for rows, sub, slot, acc, ovft, n in flight.pending:
             acc_np = acc[:n].cpu().numpy()
             ovf_np = ovft[:n].cpu().numpy()
-            live = sub >= 0
-            idx = np.clip(sub, 0, None)
-            flight.contained[:, rows] = np.where(
-                live, acc_np[idx, slot[None, :]], False)
-            flight.ovf[:, rows] = np.where(
-                live, ovf_np[idx, slot[None, :]], False)
+            with trace.span("serving.fused_gather", cells=n):
+                live = sub >= 0
+                idx = np.clip(sub, 0, None)
+                flight.contained[:, rows] = np.where(
+                    live, acc_np[idx, slot[None, :]], False)
+                flight.ovf[:, rows] = np.where(
+                    live, ovf_np[idx, slot[None, :]], False)
 
     def _run_batch(self, seqs: List[TRSeq]) -> np.ndarray:
         """Exact containment rows [len(seqs), n_patterns] for one chunk."""
@@ -976,37 +977,42 @@ class PatternServer:
         # ANDed with the terminal's ``poss`` anyway, so cells with all
         # terminals prescreen-dead contribute all-False accept/ovf bits
         # and skipping them is bit-exact (and much sharper than gating
-        # at the shard root, whose ``node_req`` is the subtree min)
-        leaf_poss = poss[:, pack.leaf_roots]
-        shard_poss = np.zeros((B0, pack.n_subtrees), bool)
-        if len(pack.term_nodes):
-            np.logical_or.at(shard_poss.T, pack.term_sub,
-                             poss[:, pack.term_nodes].T)
-        self.stats["cells_possible"] += \
-            int(shard_poss.sum()) + int(leaf_poss.sum())
-        self.stats["cells_prescreened"] += \
-            int(shard_poss.size) + int(leaf_poss.size)
-        if len(pack.leaf_rows):
-            contained[:, pack.leaf_rows] = leaf_poss
-        b_idx, s_idx = np.nonzero(shard_poss)
-        n = len(b_idx)
-        if not n:
-            return flight(tokens=tokens, order=order, start=start,
-                          count=count, tmax=tmax)
-        # every surviving cell walks its full padded shard in kernel
-        self.stats["joined_steps"] += n * pack.n_slots
-        npad = _bucket34(n)
-        cells = np.zeros((npad, 2), np.int32)
-        cells[:n, 0] = b_idx
-        cells[:n, 1] = s_idx
+        # at the shard root, whose ``node_req`` is the subtree min).
+        # The span is the host's pick: the gate, the padded cell table
+        # and its upload
+        with trace.span("serving.fused_cells", n=len(seqs)):
+            leaf_poss = poss[:, pack.leaf_roots]
+            shard_poss = np.zeros((B0, pack.n_subtrees), bool)
+            if len(pack.term_nodes):
+                np.logical_or.at(shard_poss.T, pack.term_sub,
+                                 poss[:, pack.term_nodes].T)
+            self.stats["cells_possible"] += \
+                int(shard_poss.sum()) + int(leaf_poss.sum())
+            self.stats["cells_prescreened"] += \
+                int(shard_poss.size) + int(leaf_poss.size)
+            if len(pack.leaf_rows):
+                contained[:, pack.leaf_rows] = leaf_poss
+            b_idx, s_idx = np.nonzero(shard_poss)
+            n = len(b_idx)
+            if not n:
+                return flight(tokens=tokens, order=order, start=start,
+                              count=count, tmax=tmax)
+            # every surviving cell walks its full padded shard in kernel
+            self.stats["joined_steps"] += n * pack.n_slots
+            npad = _bucket34(n)
+            cells = np.zeros((npad, 2), np.int32)
+            cells[:n, 0] = b_idx
+            cells[:n, 1] = s_idx
+            cells = self._upload(cells)
         t0 = time.perf_counter()
         acc, ovft = fused_trie_walk(
-            tokens, order, start, count, self._upload(cells),
+            tokens, order, start, count, cells,
             self._pk_steps, self._pk_parent, self._pk_req,
             ni=len(self._tlevels), nv=bank.nv, emax=self.emax,
             tmax=tmax,
         )
         _fence("serving.fused_walk", t0, self.device, cells=n)
+        # the row -> cell map, on the host while the walk runs
         cell_of = np.full((B0, pack.n_subtrees), -1, np.int64)
         cell_of[b_idx, s_idx] = np.arange(n)
         sub = cell_of[:, pack.term_sub]

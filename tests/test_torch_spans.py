@@ -1,9 +1,9 @@
 """The port's spans inside mining and serving, on the CPU: which spans a
 job and a batch record, how they nest, what their counts equal (the
-miner's copies, the predicate calls), that results are bit-identical
-with tracing off, sampled and full, and that the profiler-range option
-mirrors every recorded span as a same-name profiler range, and only
-with it on."""
+miner's copies, the predicate calls, the fused walks), that results,
+counters and dispatch counts are bit-identical with tracing off, sampled
+and full, and that the profiler-range option mirrors every recorded span
+as a same-name profiler range, and only with it on."""
 import collections
 import json
 import os
@@ -118,11 +118,36 @@ def test_a_mining_job_records_every_span_nested_and_one_upload_a_copy(db):
 
 
 def _serve(bank, queries, **kw):
+    """Rows, predicate calls, fused walks and the server's counters."""
     srv = PatternServer(bank, device="cpu", max_batch=8, **kw)
-    p0 = batch.predicate_calls
+    p0, w0 = batch.predicate_calls, batch.fused_walks
     out = srv.query(queries)
     rows = np.stack([r.contained for r in out])
-    return rows, batch.predicate_calls - p0, dict(srv.stats)
+    return (rows, batch.predicate_calls - p0, batch.fused_walks - w0,
+            dict(srv.stats))
+
+
+FUSED_SPANS = ("serving.fused_cells", "serving.fused_walk",
+               "serving.fused_gather")
+
+
+def _check_fused_spans(ev, walks, stats, layout):
+    """The fused layout's host spans: one cell pick a device batch,
+    nested in the batch's launch; one walk record a walk; one gather a
+    walk, nested in the read back; none in the other layouts."""
+    names = collections.Counter(e["name"] for e in ev)
+    if layout != "trie_fused":
+        assert not any(names[n] for n in FUSED_SPANS) and walks == 0
+        return
+    assert names["serving.fused_cells"] == stats["device_batches"] > 0
+    assert names["serving.fused_walk"] == names["serving.fused_gather"] \
+        == walks > 0
+    parent = dict(zip((id(e) for e in ev), _parents(ev)))
+    for e in ev:
+        if e["name"] in ("serving.fused_cells", "serving.fused_walk"):
+            assert parent[id(e)] == "serving.batch"
+        if e["name"] == "serving.fused_gather":
+            assert parent[id(e)] == "serving.readback"
 
 
 @pytest.mark.parametrize("layout", LAYOUTS)
@@ -131,7 +156,7 @@ def test_serving_steps_equal_the_predicate_calls(bank, queries, layout,
                                                  emax):
     """emax 1 forces undecided (``ovf & ~contained``) cells, 16 leaves
     none at this size: the replay's span appears only with them."""
-    (rows, calls, stats), ev = _run("sampled", lambda: _serve(
+    (rows, calls, walks, stats), ev = _run("sampled", lambda: _serve(
         bank, queries, emax=emax, emax_retry=2 * emax,
         bank_layout=layout))
     names = collections.Counter(e["name"] for e in ev)
@@ -151,6 +176,34 @@ def test_serving_steps_equal_the_predicate_calls(bank, queries, layout,
             assert parent[id(e)] == "serving.finalize_rows"
         if e["name"] == "serving.readback":
             assert parent[id(e)] == "serving.finalize_rows"
+    _check_fused_spans(ev, walks, stats, layout)
+
+
+@pytest.mark.parametrize("mode", ["sampled", "full"])
+def test_one_fused_batch_spans_its_cell_pick_walk_and_gather(
+        bank, queries, mode):
+    """One trie_fused batch with undecided cells (emax 1): its cell pick
+    inside ``serving.batch``, one walk, its gather inside the read back
+    of ``serving.finalize_rows``, and rows, counters and dispatch counts
+    as with tracing off."""
+    def one():
+        return _serve(bank, queries[:8], emax=1, emax_retry=2,
+                      bank_layout="trie_fused")
+
+    off, _ = _run("off", one)
+    (rows, calls, walks, stats), ev = _run(mode, one)
+    np.testing.assert_array_equal(rows, off[0])
+    assert (calls, walks, stats) == off[1:]
+    assert walks == stats["device_batches"] == 1
+    assert stats["escalated_cells"] > 0
+    _check_fused_spans(ev, walks, stats, "trie_fused")
+    parent = dict(zip((id(e) for e in ev), _parents(ev)))
+    (rb,) = [e for e in ev if e["name"] == "serving.readback"]
+    assert parent[id(rb)] == "serving.finalize_rows"
+    if mode == "full":
+        # the fenced half of the walk follows its dispatch in the batch
+        (dev,) = [e for e in ev if e["name"] == "serving.fused_walk.device"]
+        assert parent[id(dev)] == "serving.batch"
 
 
 @pytest.mark.parametrize("mode,ranges", [("sampled", False),
@@ -163,11 +216,12 @@ def test_results_are_bit_identical_with_tracing_off_sampled_and_full(
     (res1, calls1), ev = _run(mode, lambda: _mine(db), **kw)
     assert ev and res1.patterns == res0.patterns and calls1 == calls0
     for layout in LAYOUTS:
-        (rows0, p0, _), _ = _run("off", lambda: _serve(
+        (rows0, *counts0), _ = _run("off", lambda: _serve(
             bank, queries, emax=1, bank_layout=layout))
-        (rows1, p1, _), ev = _run(mode, lambda: _serve(
+        (rows1, *counts1), ev = _run(mode, lambda: _serve(
             bank, queries, emax=1, bank_layout=layout), **kw)
-        assert ev and p1 == p0
+        # predicate calls, fused walks and every server counter
+        assert ev and counts1 == counts0
         np.testing.assert_array_equal(rows1, rows0)
 
 
