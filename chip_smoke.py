@@ -37,18 +37,22 @@ line) on any failure:
    emax 1 / tmax 1 and emax 16 / tmax 32, over a batch of pad cells,
    with 25 % of the slots forced to ``REQ_MASKED``, and with step keys,
    itemset slots and pattern vertices out of range
-   (``tests/gather_inputs.py``); bit-equality, then timings beside each
-   kernel's bound;
+   (``tests/gather_inputs.py``); step_compact on the tests' random
+   inputs in every mode (``tests/compact_inputs.py``) and on every call
+   of one flat batch (emax 4) and of one fused batch's escalation replay
+   (emax 16); bit-equality, then timings beside each kernel's bound
+   (step_compact at the largest compacting call of each batch);
 6. the serving path: ``PatternServer(device="cuda")`` over the bank of
    phase 3's map (211 rFTSs) answers 1000 Table 3 queries (seed 1)
    under the ``flat``, ``trie`` and ``trie_fused`` layouts; the rows
    are equal across layouts, to the host oracle
    ``repro_torch.core.containment.contains`` on the first 128 queries,
    and again at ``emax=1`` (escalation and host fallback); the launch
-   counts are zeroed just before and read just after, and both serving
-   kernels must have launched once per predicate call / fused walk; a
+   counts are zeroed just before and read just after, and the serving
+   kernels must have launched once per predicate call (contain_step and
+   step_compact) / fused walk; a
    profiled repeat per layout reports the device time by kernel (the
-   port's three kernels always by name), and a timed trie_fused run the
+   port's four kernels always by name), and a timed trie_fused run the
    device time from start to end of each fused walk;
 7. the serving launcher on ``cuda`` (``--bank-layout trie_fused``, at
    its defaults, at ``--emax 1``, and in its streaming, replica,
@@ -187,7 +191,7 @@ EDGE_T = (1, 31, 32, 33, 64, 300)
 # the (E, T) of match_count's cases at the tests' other widths
 WIDTH_SHAPES = ((1, 1), (37, 33), (129, 31), (5, 300))
 # csrc sources, one nvcc each, all built together
-KERNELS = ("match_count", "containment", "trie_walk")
+KERNELS = ("match_count", "containment", "trie_walk", "step_compact")
 # the serving phase: Table 3 queries (seed 1) against phase 3's bank
 N_QUERIES, MAX_BATCH, EMAX, N_ORACLE = 1000, 512, 4, 128
 LAYOUTS = ("flat", "trie", "trie_fused")
@@ -209,7 +213,7 @@ DIST_SERVE_REPS, DIST_TIMEOUT_S = 3, 600.0
 CONTAIN_RANDOM = ((1, 1, 1), (65, 4, 9), (4096, 4, 16), (4096, 16, 16))
 # the port's kernels as the profiler names them
 PORT_KERNELS = ("contain_step_kernel", "trie_walk_kernel",
-                "match_count_kernel")
+                "match_count_kernel", "step_compact_kernel")
 
 
 def log(msg: str) -> None:
@@ -775,9 +779,11 @@ def _abs_err(got, want) -> int:
 def serving_setup(res) -> dict:
     """Phase 3's map compiled into the serving bank, its trie, the 1000
     Table 3 queries (seed 1), and the real inputs of the serving
-    kernels: one flat batch's contain_step calls and one fused batch's
-    trie_walk_cells call (its tables and cells), recorded while a
-    server answers the first ``MAX_BATCH`` queries."""
+    kernels: one flat batch's contain_step and step_compact calls, and
+    one fused batch's trie_walk_cells call (its tables and cells) and
+    the step_compact calls of its escalation replay (at the server's
+    ``emax_retry``), recorded while a server answers the first
+    ``MAX_BATCH`` queries."""
 
     from repro_torch.data.synthetic import Table3Params, generate_table3_db
     from repro_torch.serving import batch
@@ -797,7 +803,8 @@ def serving_setup(res) -> dict:
     if bank.n_patterns != 211:
         raise AssertionError(f"expected the 211-rFTS bank, got "
                              f"{bank.n_patterns}")
-    recorded = {"contain_step": [], "trie_walk_cells": []}
+    recorded = {"contain_step": [], "trie_walk_cells": [],
+                "step_compact": []}
     orig = {name: getattr(batch, name) for name in recorded}
 
     def recorder(name):
@@ -817,6 +824,7 @@ def serving_setup(res) -> dict:
             srv.query(first)
             if layout == "flat":
                 flat_calls = list(recorded["contain_step"])
+                flat_compact = list(recorded["step_compact"])
     finally:
         for name, fn in orig.items():
             setattr(batch, name, fn)
@@ -826,7 +834,9 @@ def serving_setup(res) -> dict:
             f"batch and {len(recorded['trie_walk_cells'])} fused walks")
     return {"bank": bank, "trie": trie, "queries": queries,
             "flat_calls": flat_calls,
-            "walk": recorded["trie_walk_cells"][0]}
+            "walk": recorded["trie_walk_cells"][0],
+            "compact_flat": flat_compact,
+            "compact_replay": recorded["step_compact"][len(flat_compact):]}
 
 
 def phase_serving_kernels(setup) -> list:
@@ -1003,7 +1013,106 @@ def phase_serving_kernels(setup) -> list:
         "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
         "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
     })
+    out.append(_serving_compact(setup))
     return out
+
+
+def _compact_bound(args, kw):
+    """Least time for one step_compact call: what it needs of its
+    inputs read once (on a terminal step the masks, the frontier's
+    valid rows and the window counts; on a compacting step also the
+    window, phi, psi, the step rows' five fields and pu_c / pu_ok) and
+    its outputs written once, against the int32 operations (about 6 a
+    mask for its two bits and their ranks, 4 an output entry)."""
+    bits, tok_w, phi, psi, valid, _, ct_sel, _, _ = args
+    N, Ein, Tm = bits.shape
+    E, NI, NV = kw["emax"], phi.shape[2], psi.shape[2]
+    nbytes = 4 * (bits.numel() + ct_sel.numel()) + valid.numel()
+    nops = 6 * bits.numel()
+    if kw["compact"]:
+        nbytes += (4 * (tok_w.numel() + phi.numel() + psi.numel() + 5 * N)
+                   + 18 * N + 4 * N * E * (NI + NV) + N * E + N)
+        nops += 4 * N * E * (NI + NV)
+    else:
+        nbytes += 2 * N
+    return (*_bound(nbytes, nops), nbytes, nops)
+
+
+def _serving_compact(setup) -> dict:
+    """step_compact on the card: bit-equal to its plain version on the
+    tests' random inputs in every mode (step rows and pu_c / pu_ok as
+    strided views, as the join passes them) and on every recorded call
+    of a flat batch and of a fused batch's replay; then timed at the
+    largest compacting call of each beside its bound and the plain
+    version."""
+    import torch
+
+    from repro_torch.kernels.step_compact import ops as sops
+    from repro_torch.kernels.step_compact import ref as sref
+
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    from compact_inputs import MODES, N_CELLS, SHAPES, compact_inputs, \
+        mode_kw
+
+    max_err = n_cmp = 0
+
+    def held(what, args, kw):
+        nonlocal max_err, n_cmp
+        got = sops.step_compact(*args, **kw)
+        want = sref.step_compact_core(*args, **kw)
+        torch.cuda.synchronize()
+        for g, w in zip(got, want):
+            max_err = max(max_err, _abs_err(g, w))
+            if g.dtype != w.dtype or not torch.equal(g, w):
+                raise AssertionError(f"step_compact {what}: "
+                                     f"{int((g != w).sum())} outputs differ")
+        n_cmp += 1
+
+    for emax, Ein, Tm in SHAPES:
+        args, kw = compact_inputs(emax * 1000 + Ein * 10 + Tm, N_CELLS, emax,
+                                  Ein, Tm, device="cuda")
+        for mode in MODES:
+            held(f"random emax={emax} Ein={Ein} Tm={Tm} {mode}", args,
+                 dict(kw, **mode_kw(mode)))
+    n_random = n_cmp
+    timed = {}
+    for what, calls in (("flat batch", setup["compact_flat"]),
+                        ("fused replay", setup["compact_replay"])):
+        for args, kw in calls:
+            held(what, args, kw)
+        compacting = [c for c in calls if c[1]["compact"]]
+        if compacting:
+            timed[what] = max(compacting, key=lambda c: c[0][0].numel())
+    log(f"[step_compact] bit-equal to the plain version in {n_cmp} "
+        f"comparisons: {n_random} random (emax, Ein, Tm) in "
+        + "/".join(f"({e},{i},{t})" for e, i, t in SHAPES)
+        + f" x {', '.join(MODES)}; {len(setup['compact_flat'])} calls of "
+        f"one flat batch of {MAX_BATCH} queries and "
+        f"{len(setup['compact_replay'])} of one fused batch's replay")
+    if len(timed) != 2:
+        raise AssertionError(f"compacting calls recorded of "
+                             f"{sorted(timed)} only")
+    entry = {"name": "step_compact", "route": "cuda",
+             "source": "src/repro_torch/csrc/step_compact.cu",
+             "replaces": None, "max_abs_err": max_err, "library_ms": None}
+    for what, (args, kw) in timed.items():
+        ms, host_ms = _time_ms(lambda: sops.step_compact(*args, **kw),
+                               reps=200)
+        plain_ms, plain_host_ms = _time_ms(
+            lambda: sref.step_compact_core(*args, **kw), reps=20)
+        bound_ms, bound_by, nbytes, nops = _compact_bound(args, kw)
+        N, Ein, Tm = args[0].shape
+        log(f"[step_compact] {what}'s largest compacting call N={N} "
+            f"Ein={Ein} Tm={Tm} emax={kw['emax']} NI={args[2].shape[2]} "
+            f"NV={args[3].shape[2]}: kernel {ms:.5f} ms device (median), "
+            f"{host_ms:.5f} ms per wrapper call on the host; plain "
+            f"{plain_ms:.5f} ms device, {plain_host_ms:.5f} ms host; bound "
+            f"{bound_ms:.6f} ms by {bound_by} ({nbytes} B, {nops} int ops);"
+            f" library_ms null (no single PyTorch call computes this)")
+        if what == "flat batch":
+            entry.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                         bound_by=bound_by)
+    return entry
 
 
 def _serve(bank, trie, queries, layout, **kw):
@@ -1095,19 +1204,22 @@ def phase_serving(setup) -> dict:
 
     from repro_torch.core.containment import contains
     from repro_torch.kernels.containment import ops as cops
+    from repro_torch.kernels.step_compact import ops as sops
     from repro_torch.kernels.trie_walk import ops as wops
     from repro_torch.serving import batch
 
     bank, trie, queries = setup["bank"], setup["trie"], setup["queries"]
-    cops.launches = wops.launches = 0
+    cops.launches = wops.launches = sops.launches = 0
     batch.predicate_calls = batch.fused_walks = 0
     rows, walls, stats = {}, {}, {}
     for layout in LAYOUTS:
         rows[layout], stats[layout], walls[layout] = _serve(
             bank, trie, queries, layout, emax=EMAX)
-    launches = {"contain_step": cops.launches, "trie_walk": wops.launches}
+    launches = {"contain_step": cops.launches, "trie_walk": wops.launches,
+                "step_compact": sops.launches}
     calls = {"contain_step": batch.predicate_calls,
-             "trie_walk": batch.fused_walks}
+             "trie_walk": batch.fused_walks,
+             "step_compact": batch.predicate_calls}
     for layout in LAYOUTS:
         log(f"[serving] {layout}: {len(queries)} queries in "
             f"{walls[layout]:.3f}s ({len(queries) / walls[layout]:.1f} "
@@ -1120,11 +1232,11 @@ def phase_serving(setup) -> dict:
                 f"{int((rows[layout] != rows['flat']).sum())} cells")
     setup["rows"] = rows["flat"]
     fused_batches = stats["trie_fused"]["device_batches"]
-    if not (launches["contain_step"] > 0
-            and launches["contain_step"] == calls["contain_step"]):
-        raise AssertionError(
-            f"contain_step launched {launches['contain_step']} times for "
-            f"{calls['contain_step']} predicate calls")
+    for name in ("contain_step", "step_compact"):
+        if not (launches[name] > 0 and launches[name] == calls[name]):
+            raise AssertionError(
+                f"{name} launched {launches[name]} times for "
+                f"{calls[name]} predicate calls")
     if not (launches["trie_walk"] > 0
             and launches["trie_walk"] == calls["trie_walk"]
             <= fused_batches):
@@ -1132,7 +1244,8 @@ def phase_serving(setup) -> dict:
             f"trie_walk launched {launches['trie_walk']} times for "
             f"{calls['trie_walk']} fused walks ({fused_batches} batches)")
     log(f"[serving] launches on the main path: contain_step "
-        f"{launches['contain_step']} (== predicate calls), trie_walk "
+        f"{launches['contain_step']} and step_compact "
+        f"{launches['step_compact']} (== predicate calls), trie_walk "
         f"{launches['trie_walk']} (== fused walks, {fused_batches} fused "
         f"batches)")
 
@@ -1208,10 +1321,11 @@ def _zero_counts() -> None:
     set to 0."""
     from repro_torch.kernels.containment import ops as cops
     from repro_torch.kernels.match_count import ops as mops
+    from repro_torch.kernels.step_compact import ops as sops
     from repro_torch.kernels.trie_walk import ops as wops
     from repro_torch.serving import batch
 
-    cops.launches = mops.launches = wops.launches = 0
+    cops.launches = mops.launches = wops.launches = sops.launches = 0
     batch.predicate_calls = batch.fused_walks = 0
 
 
@@ -1220,12 +1334,14 @@ def _counts() -> dict:
     ``_zero_counts``; match_count's calls are filled in by the caller."""
     from repro_torch.kernels.containment import ops as cops
     from repro_torch.kernels.match_count import ops as mops
+    from repro_torch.kernels.step_compact import ops as sops
     from repro_torch.kernels.trie_walk import ops as wops
     from repro_torch.serving import batch
 
     return {"match_count": [mops.launches, None],
             "contain_step": [cops.launches, batch.predicate_calls],
-            "trie_walk": [wops.launches, batch.fused_walks]}
+            "trie_walk": [wops.launches, batch.fused_walks],
+            "step_compact": [sops.launches, batch.predicate_calls]}
 
 
 def _check_counts(what, counts, used) -> None:
@@ -1246,7 +1362,8 @@ def _mining_calls(metrics) -> int:
 
 
 def _uses(layout):
-    return {"flat": ("contain_step",), "trie": ("contain_step",),
+    return {"flat": ("contain_step", "step_compact"),
+            "trie": ("contain_step", "step_compact"),
             "trie_fused": ("trie_walk",)}[layout]
 
 
@@ -1620,6 +1737,7 @@ def _dist_inputs(res, setup) -> dict:
 
     from repro_torch.core.containment import contains
     from repro_torch.kernels.containment import ref as cref
+    from repro_torch.kernels.step_compact import ref as sref
     from repro_torch.mining.encoding import encode_db
     from repro_torch.mining.engine import aggregate_host, \
         candidate_table_device, match_signatures_ref
@@ -1676,8 +1794,10 @@ def _dist_inputs(res, setup) -> dict:
               tmax=tmax)
     c = {k: v.cuda() for k, v in serve.items()
          if isinstance(v, torch.Tensor)}
-    # the references join on cuda through contain_step's plain version
+    # the references join on cuda through the plain versions of
+    # contain_step and step_compact
     kernel, batch.contain_step = batch.contain_step, cref.contain_step_core
+    compact, batch.step_compact = batch.step_compact, sref.step_compact_core
     try:
         ref = {"flat": batch_contains(c["tokens"], c["steps"],
                                       c["pattern_valid"], **kw)}
@@ -1692,6 +1812,7 @@ def _dist_inputs(res, setup) -> dict:
             for s in range(S)]
     finally:
         batch.contain_step = kernel
+        batch.step_compact = compact
     ref["trie"] = tuple(torch.cat([p[i] for p in parts], 1)
                         for i in (0, 1))
     pats = {"flat": flat.patterns,
@@ -1710,8 +1831,8 @@ def _dist_inputs(res, setup) -> dict:
         serve[f"{layout}_contained"], serve[f"{layout}_overflow"] = \
             torch.from_numpy(con), torch.from_numpy(ovf)
         log(f"[multi-rank] single-rank {layout} join of {len(queries)} "
-            f"queries x {con.shape[1]} columns on cuda, contain_step's "
-            f"plain version: "
+            f"queries x {con.shape[1]} columns on cuda, the plain "
+            f"versions of contain_step and step_compact: "
             f"{int(con.sum())} containments, {int(ovf.sum())} overflow "
             f"cells; == host oracle on the first {N_ORACLE} queries where "
             f"no cell overflowed ({int(ok.sum())} cells)")
@@ -2731,7 +2852,8 @@ def _fam_integration(params, gpu) -> None:
     counts = _counts()
     counts["match_count"][1] = got["device_calls"]
     _check_counts("[family] integration path", counts,
-                  ("match_count", "contain_step", "trie_walk"))
+                  ("match_count", "contain_step", "trie_walk",
+                   "step_compact"))
     held = topk_vs_bruteforce(params["item_emb"], got["query"], got["ids"],
                               cfg)
     f = got["feats"]

@@ -33,11 +33,12 @@ undecided; the server re-checks just those against the host oracle.
 
 Everything runs eagerly on the tensors' device.  The predicate is the
 containment kernel on a CUDA tensor and its plain version on a CPU one;
-everything around it (the window gather, the compaction, the phi/psi
-update) is plain PyTorch.  The ``trie_fused`` layout's whole walk is
-one launch of the trie-walk kernel (``fused_trie_walk``).  Every entry
-point is bit-equal to its counterpart in the JAX package
-(``repro.serving.batch``).
+so is the compaction and phi/psi update after it (the step-compaction
+kernel, ``kernels.step_compact``).  The window gather and the step table
+in front of the predicate are plain PyTorch.  The ``trie_fused``
+layout's whole walk is one launch of the trie-walk kernel
+(``fused_trie_walk``).  Every entry point is bit-equal to its
+counterpart in the JAX package (``repro.serving.batch``).
 
 **Trie layout** (trie.py): the same step dynamics, but one frontier per
 (sequence, trie *node*) instead of per (sequence, pattern) - a
@@ -49,8 +50,9 @@ and deterministic, trie and flat joins are bit-identical in both
 
 Counters: ``predicate_calls`` counts the calls of the predicate made
 by ``_step_once`` and ``fused_walks`` the calls of the fused walk; on
-a CUDA device each is one kernel launch.  Each ``_step_once`` call is
-one ``serving.step`` span (``obs.trace``), in every layout.
+a CUDA device each is one kernel launch (a predicate call also one of
+the step-compaction kernel).  Each ``_step_once`` call is one
+``serving.step`` span (``obs.trace``), in every layout.
 """
 from __future__ import annotations
 
@@ -61,8 +63,8 @@ import torch
 
 from ..kernels import INT32_MIN
 from ..kernels.containment.ops import contain_step
+from ..kernels.step_compact.ops import step_compact
 from ..kernels.trie_walk import ref as _fused_ref
-from ..kernels.trie_walk.ref import gather_rows
 from ..kernels.trie_walk.ops import trie_walk_cells
 from ..mining.encoding import PAD_PHI, PAD_PSI
 from ..obs import trace
@@ -236,13 +238,8 @@ def _step_once(tokens, order, start, count, cell_b, step_k, phi, psi,
     T = tokens.shape[1]
     N, Ein, NI = phi.shape  # Ein: 1 on the root frontier, E afterwards
     NV = psi.shape[2]
-    E, Tm = emax, tmax
-    C = Ein * Tm * 2  # candidates: frontier rows x window x orient
-    dev = phi.device
-    nv_ids = torch.arange(NV, dtype=_I32, device=dev)
-    ni_ids = torch.arange(NI, dtype=_I32, device=dev)
-    m_ids = torch.arange(Tm, dtype=_I32, device=dev)
-    cand_ids = torch.arange(C, dtype=_I32, device=dev)
+    Tm = tmax
+    m_ids = torch.arange(Tm, dtype=_I32, device=phi.device)
     ty_s, pu1_s, pu2_s, lab_s, new_s, idx_s, sval_s, key_s = (
         step_k[:, c] for c in range(8)
     )
@@ -286,71 +283,11 @@ def _step_once(tokens, order, start, count, cell_b, step_k, phi, psi,
                         srow.contiguous())
     predicate_calls += 1
 
-    # ---- compact accepted candidates into the emax frontier slots:
-    # first E in (row, token, orientation) order, by iterative
-    # min-extraction
-    flags = (torch.stack([bits & 1, (bits >> 1) & 1], -1) > 0).reshape(N, C)
-    # a truncated window may lose matches only if the frontier was
-    # still live going into the step
-    window_ovf = (ct_sel > Tm) & valid.any(-1)
-    if not compact:
-        if count_frontier_ovf:
-            # equals the compacted path's frontier flag: the first-E
-            # extraction leaves a flagged candidate iff #accepted > E
-            frontier_ovf = flags.sum(-1) > E
-            return flags.any(-1), window_ovf | frontier_ovf
-        return flags.any(-1), window_ovf
-    cand_row = cand_ids[None, :]
-    sels = []
-    last = torch.full((N, 1), -1, dtype=_I32, device=dev)
-    for _ in range(E):
-        cur = torch.where(flags & (cand_row > last), cand_row, C).amin(
-            -1, keepdim=True)
-        sels.append(cur)
-        last = cur
-    # anything still flagged past the E extracted slots was dropped
-    frontier_ovf = torch.where(
-        flags & (cand_row > last), cand_row, C).amin(-1) < C
-    sel = torch.cat(sels, -1)  # [N, E] ascending, C = empty
-    new_valid = sel < C
-    sel = torch.clamp(sel, max=C - 1)
-    e_old = sel // (Tm * 2)
-    t_w = (sel // 2) % Tm
-    var = sel % 2
-
-    # e_old < Ein and t_w < Tm by construction: these gathers are in range
-    phi_src = gather_rows(phi, e_old)
-    psi_src = gather_rows(psi, e_old)
-
-    def wfield(f):  # [N, E] gather of tok_w[n, t_w, f]
-        return torch.gather(tok_w[..., f], 1, t_w.long())
-
-    u1_g, u2_g, j_g = wfield(1), wfield(2), wfield(4)
-
-    # phi: the first TR of a new pattern itemset claims data itemset j
-    claim = (new_s[:, None] > 0) & new_valid
-    onehot_ni = ni_ids[None, None, :] == idx_s[:, None, None]
-    phi_new = torch.where(onehot_ni & claim[..., None], j_g[..., None],
-                          phi_src)
-
-    # psi: fresh pattern vertices bind per the matched orientation
-    a_g = torch.where(var == 0, u1_g, u2_g)
-    b_g = torch.where(var == 0, u2_g, u1_g)
-    is_v = (ty_s <= 2)[:, None]
-    fresh = torch.where(
-        pu_ok[:, None, :],
-        torch.gather(psi_src, 2, pu_c[:, None, :].expand(N, E, 2)),
-        INT32_MIN) < 0
-    fresh1, fresh2 = fresh[..., 0], fresh[..., 1]
-    onehot1 = nv_ids[None, None, :] == pu1_s[:, None, None]
-    onehot2 = nv_ids[None, None, :] == pu2_s[:, None, None]
-    assign1 = torch.where(is_v, u1_g, a_g)
-    psi_new = torch.where(onehot1 & (fresh1 & new_valid)[..., None],
-                          assign1[..., None], psi_src)
-    psi_new = torch.where(
-        onehot2 & ((~is_v) & fresh2 & new_valid)[..., None],
-        b_g[..., None], psi_new)
-    return phi_new, psi_new, new_valid, frontier_ovf | window_ovf
+    # ---- compaction into the emax frontier slots and the phi / psi
+    # update: one launch of the step-compaction kernel on a CUDA tensor
+    return step_compact(bits, tok_w, phi, psi, valid, step_k, ct_sel,
+                        pu_c, pu_ok, emax=emax, tmax=Tm, compact=compact,
+                        count_frontier_ovf=count_frontier_ovf)
 
 
 def _root_frontier(n: int, ni: int, nv: int, device):

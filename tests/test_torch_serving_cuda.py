@@ -14,6 +14,7 @@ import torch
 from repro_torch.core.compile import compile_sequence
 from repro_torch.data.synthetic import random_graph_sequence
 from repro_torch.kernels.containment import ops as cops
+from repro_torch.kernels.step_compact import ops as sops
 from repro_torch.kernels.trie_walk import ops as wops
 from repro_torch.kernels.trie_walk.ref import REQ_MASKED
 from repro_torch.mining.driver import AcceleratedMiner
@@ -241,7 +242,8 @@ def test_trie_walk_refuses_a_cell_too_large_for_a_block():
 @pytest.mark.parametrize("layout", ["flat", "trie", "trie_fused"])
 def test_server_on_cuda_matches_cpu(layout):
     """Rows and counters on cuda equal the CPU's (plain versions), and
-    the kernels launched once per predicate call / fused walk."""
+    the kernels launched once per predicate call (contain_step and
+    step_compact) / fused walk."""
     _needs_card()
     db, queries = _db(3, 10, 5, 5), _db(4, 24, 6, 5)
     bank = compile_bank(AcceleratedMiner(db, device="cpu").mine_rs(
@@ -251,12 +253,13 @@ def test_server_on_cuda_matches_cpu(layout):
                   bank_layout=layout)
         cpu = PatternServer(bank, device="cpu", **kw)
         want = np.stack([r.contained for r in cpu.query(queries)])
-        cops.launches = wops.launches = 0
+        cops.launches = wops.launches = sops.launches = 0
         batch.predicate_calls = batch.fused_walks = 0
         gpu = PatternServer(bank, device="cuda", **kw)
         got = np.stack([r.contained for r in gpu.query(queries)])
         np.testing.assert_array_equal(got, want)
         assert dict(gpu.stats) == dict(cpu.stats)
         assert cops.launches == batch.predicate_calls > 0
+        assert sops.launches == batch.predicate_calls
         assert wops.launches == batch.fused_walks
         assert (wops.launches > 0) == (layout == "trie_fused")
