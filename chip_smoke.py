@@ -843,6 +843,7 @@ def phase_serving_kernels(setup) -> list:
     import numpy as np
     import torch
 
+    from repro_torch.kernels import REQ_MASKED
     from repro_torch.kernels.containment import ops as cops
     from repro_torch.kernels.containment import ref as cref
     from repro_torch.kernels.trie_walk import ops as wops
@@ -956,7 +957,7 @@ def phase_serving_kernels(setup) -> list:
     masked = [a.clone() for a in args]
     kill = torch.from_numpy(np.random.default_rng(3).random(
         tuple(args[7].shape[:2])) < 0.25).to(dev)
-    masked[7][kill] = wref.REQ_MASKED
+    masked[7][kill] = REQ_MASKED
     acc_m, ovf_m = held("25 % REQ_MASKED", masked, kw)
     dead = kill[cells[:, 1].long()]
     if (acc_m & dead).any() or (ovf_m & dead).any():

@@ -11,6 +11,7 @@ from __future__ import annotations
 
 from typing import Union
 
+import numpy as np
 import torch
 
 DeviceLike = Union[str, torch.device, None]
@@ -55,6 +56,13 @@ def gather_rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 
 # what JAX's take_along_axis reads for an int32 index out of range
 INT32_MIN = -(2 ** 31)
+# the embedding tables' padding: phi's +inf itemset and psi's unbound
+# vertex (``mining.encoding``; the serving join's root frontier)
+PAD_PHI = np.int32(0x3FFFFFF)
+PAD_PSI = np.int32(-2)
+#: prescreen row value that no token-count vector ever satisfies - a
+#: masked (tombstoned) pattern or subtree is never joined
+REQ_MASKED = 2 ** 31 - 1
 
 
 def _wrap_once(idx: torch.Tensor, n: int):
@@ -74,6 +82,14 @@ def take_fill(x: torch.Tensor, dim: int, idx: torch.Tensor) -> torch.Tensor:
     range reads ``INT32_MIN``."""
     idx, ok = _wrap_once(idx, x.shape[dim])
     return torch.where(ok, torch.gather(x, dim, idx), INT32_MIN)
+
+
+def gather_cell_rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``x[n, idx[n, k]]`` along dim 1 for every trailing column:
+    x [N, R, W], idx [N, K] -> [N, K, W] (JAX's take_along_axis with a
+    [N, K, 1] index, every index in range)."""
+    N, K = idx.shape
+    return torch.gather(x, 1, idx.long()[..., None].expand(N, K, x.shape[2]))
 
 
 def take_nan(x: torch.Tensor, dim: int, idx: torch.Tensor) -> torch.Tensor:

@@ -15,8 +15,7 @@ from __future__ import annotations
 
 import torch
 
-from .. import INT32_MIN
-from ..trie_walk.ref import gather_rows
+from .. import INT32_MIN, gather_cell_rows
 
 _I32 = torch.int32
 
@@ -84,8 +83,8 @@ def step_compact_core(bits, tok_w, phi, psi, valid, step_k, ct_sel, pu_c,
     var = sel % 2
 
     # e_old < Ein and t_w < Tm by construction: these gathers are in range
-    phi_src = gather_rows(phi, e_old)
-    psi_src = gather_rows(psi, e_old)
+    phi_src = gather_cell_rows(phi, e_old)
+    psi_src = gather_cell_rows(psi, e_old)
 
     def wfield(f):  # [N, E] gather of tok_w[n, t_w, f]
         return torch.gather(tok_w[..., f], 1, t_w.long())

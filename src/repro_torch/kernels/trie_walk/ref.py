@@ -20,34 +20,22 @@ buffers:
 * terminal accept/overflow bits for every slot come out together.
 
 ``_walk_step`` is ``serving.batch._step_once`` (``uniform=False``,
-``compact=True``) on per-cell token arrays - same candidate order, same
-first-``emax`` min-extraction compaction, same overflow flags - and the
-root seed is the per-level 1-wide root frontier widened to ``emax`` rows
-with only row 0 valid: invalid rows flag no candidates and the candidate
-order is row-major, so the compacted state agrees bitwise.  Bit-equal to
+``compact=True``) on per-cell token arrays: its own reads of the step's
+window and step table, then the same compaction and frontier update
+(``step_compact.ref.step_compact_core``) - same candidate order, same
+first-``emax`` min-extraction, same overflow flags - and the root seed
+is the per-level 1-wide root frontier widened to ``emax`` rows with only
+row 0 valid: invalid rows flag no candidates and the candidate order is
+row-major, so the compacted state agrees bitwise.  Bit-equal to
 the JAX reference ``repro.kernels.trie_walk.ref``.
 """
 from __future__ import annotations
 
-import numpy as np
 import torch
 
-from .. import take_fill
+from .. import PAD_PHI, PAD_PSI, _wrap_once, take_fill
 from ..containment.ref import contain_step_core
-
-# local mirrors of the serving-layer constants (the kernels layer stays
-# import-free of serving; serving.batch asserts equality at import)
-PAD_PHI = 0x3FFFFFF   # mining.encoding.PAD_PHI: +inf itemset sentinel
-PAD_PSI = -2          # mining.encoding.PAD_PSI: unbound-vertex sentinel
-REQ_MASKED = int(np.iinfo(np.int32).max)  # serving.trie.REQ_MASKED
-
-
-def gather_rows(x, idx):
-    """``x[n, idx[n, k]]`` along dim 1 for every trailing column:
-    x [N, R, W], idx [N, K] -> [N, K, W] (JAX's take_along_axis with a
-    [N, K, 1] index)."""
-    N, K = idx.shape
-    return torch.gather(x, 1, idx.long()[..., None].expand(N, K, x.shape[2]))
+from ..step_compact.ref import step_compact_core
 
 
 def _walk_step(tok_c, order_c, start_c, count_c, step_k, phi, psi,
@@ -59,13 +47,8 @@ def _walk_step(tok_c, order_c, start_c, count_c, step_k, phi, psi,
     T = tok_c.shape[1]
     N, Ein, NI = phi.shape
     NV = psi.shape[2]
-    E, Tm = emax, tmax
-    C = Ein * Tm * 2  # candidates: frontier rows x window x orient
-    dev = phi.device
-    nv_ids = torch.arange(NV, dtype=torch.int32, device=dev)
-    ni_ids = torch.arange(NI, dtype=torch.int32, device=dev)
-    m_ids = torch.arange(Tm, dtype=torch.int32, device=dev)
-    cand_ids = torch.arange(C, dtype=torch.int32, device=dev)
+    Tm = tmax
+    m_ids = torch.arange(Tm, dtype=torch.int32, device=phi.device)
     ty_s, pu1_s, pu2_s, lab_s, new_s, idx_s, sval_s, key_s = (
         step_k[:, c] for c in range(8)
     )
@@ -102,56 +85,15 @@ def _walk_step(tok_c, order_c, start_c, count_c, step_k, phi, psi,
 
     bits = contain_step_core(tok_w, psi, srow)
 
-    # ---- first-emax compaction by iterative min-extraction (the same
-    # candidate order and extraction as _step_once)
-    flags = (torch.stack([bits & 1, (bits >> 1) & 1], -1) > 0).reshape(N, C)
+    # ---- the compaction and phi / psi update of ``_step_once``; the
+    # pattern vertices read as take_along_axis reads them, and the
+    # window count clamped to the window so that the flag it returns is
+    # the frontier leg alone
+    pu_c, pu_ok = _wrap_once(torch.stack([pu1_s, pu2_s], -1), NV)
+    phi_new, psi_new, new_valid, frontier_ovf = step_compact_core(
+        bits, tok_w, phi, psi, valid, step_k, torch.clamp(ct_sel, max=Tm),
+        pu_c, pu_ok, emax=emax, tmax=Tm, compact=True)
     window_ovf = (ct_sel > Tm) & valid.any(-1)
-    cand_row = cand_ids[None, :]
-    sels = []
-    last = torch.full((N, 1), -1, dtype=torch.int32, device=dev)
-    for _ in range(E):
-        cur = torch.where(flags & (cand_row > last), cand_row, C).amin(
-            -1, keepdim=True)
-        sels.append(cur)
-        last = cur
-    frontier_ovf = torch.where(
-        flags & (cand_row > last), cand_row, C).amin(-1) < C
-    sel = torch.cat(sels, -1)  # [N, E] ascending, C = empty
-    new_valid = sel < C
-    sel = torch.clamp(sel, max=C - 1)
-    e_old = sel // (Tm * 2)
-    t_w = (sel // 2) % Tm
-    var = sel % 2
-
-    # e_old < Ein and t_w < Tm by construction: these gathers are in range
-    phi_src = gather_rows(phi, e_old)
-    psi_src = gather_rows(psi, e_old)
-
-    def wfield(f):  # [N, E] gather of tok_w[n, t_w, f]
-        return torch.gather(tok_w[..., f], 1, t_w.long())
-
-    u1_g, u2_g, j_g = wfield(1), wfield(2), wfield(4)
-
-    claim = (new_s[:, None] > 0) & new_valid
-    onehot_ni = ni_ids[None, None, :] == idx_s[:, None, None]
-    phi_new = torch.where(onehot_ni & claim[..., None], j_g[..., None],
-                          phi_src)
-
-    a_g = torch.where(var == 0, u1_g, u2_g)
-    b_g = torch.where(var == 0, u2_g, u1_g)
-    is_v = (ty_s <= 2)[:, None]
-    pu1_b = pu1_s[:, None, None].expand(N, E, 1)
-    pu2_b = pu2_s[:, None, None].expand(N, E, 1)
-    fresh1 = take_fill(psi_src, 2, pu1_b)[..., 0] < 0
-    fresh2 = take_fill(psi_src, 2, pu2_b)[..., 0] < 0
-    onehot1 = nv_ids[None, None, :] == pu1_s[:, None, None]
-    onehot2 = nv_ids[None, None, :] == pu2_s[:, None, None]
-    assign1 = torch.where(is_v, u1_g, a_g)
-    psi_new = torch.where(onehot1 & (fresh1 & new_valid)[..., None],
-                          assign1[..., None], psi_src)
-    psi_new = torch.where(
-        onehot2 & ((~is_v) & fresh2 & new_valid)[..., None],
-        b_g[..., None], psi_new)
     return phi_new, psi_new, new_valid, frontier_ovf, window_ovf
 
 
@@ -174,8 +116,10 @@ def trie_walk_core(tok_c, order_c, start_c, count_c, steps, parent, req,
     E = emax
     dev = steps.device
     i32 = torch.int32
-    root_phi = torch.full((N, E, ni), PAD_PHI, dtype=i32, device=dev)
-    root_psi = torch.full((N, E, nv), PAD_PSI, dtype=i32, device=dev)
+    root_phi = torch.full((N, E, ni), int(PAD_PHI), dtype=i32,
+                          device=dev)
+    root_psi = torch.full((N, E, nv), int(PAD_PSI), dtype=i32,
+                          device=dev)
     root_valid = torch.zeros((N, E), dtype=torch.bool, device=dev)
     root_valid[:, 0] = True
     # per-node residual prescreen, one compare for all slots

@@ -21,9 +21,8 @@ import numpy as np
 
 from ..core.enumerate_host import Emb, ExtKey, Slot
 from ..core.graphseq import NO_LABEL, NO_VERTEX, Pattern, TR, TRSeq, TRType
+from ..kernels import PAD_PHI, PAD_PSI
 
-PAD_PHI = np.int32(0x3FFFFFF)
-PAD_PSI = np.int32(-2)
 SENT_V = 15  # pu2 sentinel for vertex TRs inside signatures
 INVALID_SIG = np.int32(-1)
 

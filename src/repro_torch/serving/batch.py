@@ -20,7 +20,7 @@ Three query-time reductions keep the join off the B*P*T dense wall:
   tokens, so ``counts[b] >= bank.req[p]`` (per key) is a sound
   necessary condition; the server joins only surviving pairs
   (``pair_contains``).  A masked pattern's ``req`` row (or a dead trie
-  subtree's ``node_req``) is ``trie.REQ_MASKED``, which no count vector
+  subtree's ``node_req``) is ``kernels.REQ_MASKED``, which no count vector
   satisfies,
 * **min-extraction compaction** - frontier selection is "first emax
   accepted candidates" in (row, token, orientation) order.
@@ -61,21 +61,11 @@ import functools
 import numpy as np
 import torch
 
-from ..kernels import INT32_MIN
+from ..kernels import INT32_MIN, PAD_PHI, PAD_PSI
 from ..kernels.containment.ops import contain_step
 from ..kernels.step_compact.ops import step_compact
-from ..kernels.trie_walk import ref as _fused_ref
 from ..kernels.trie_walk.ops import trie_walk_cells
-from ..mining.encoding import PAD_PHI, PAD_PSI
 from ..obs import trace
-from .trie import REQ_MASKED
-
-# the kernels layer mirrors the serving constants locally (it stays
-# import-free of serving); pin the mirrors here so a drift breaks
-# loudly at import instead of silently de-synchronizing the fused walk
-assert _fused_ref.PAD_PHI == int(PAD_PHI)
-assert _fused_ref.PAD_PSI == int(PAD_PSI)
-assert _fused_ref.REQ_MASKED == REQ_MASKED
 
 # predicate evaluations and fused walks made by this process
 predicate_calls = 0
@@ -428,32 +418,6 @@ def trie_level_advance_ref(
 
 
 trie_level_advance = trie_level_advance_ref
-
-
-def trie_root_advance(tokens, order, start, count, cells, *, ni: int,
-                      nv: int, emax: int, tmax: int, compact: bool = True):
-    """``trie_level_advance`` for depth-1 cells from the root seed.
-    ``cells`` packs ``[cell_b, parent_idx(unused), step row]`` as one
-    [N, 2+F] int32 upload."""
-    seed = trie_root_state(cells.shape[0], ni, nv, tokens.device)
-    return trie_level_advance_ref(
-        tokens, order, start, count, *seed, cells[:, 0], cells[:, 2:],
-        emax=emax, tmax=tmax, compact=compact,
-    )
-
-
-def trie_level_advance_gather(tokens, order, start, count, prev_phi,
-                              prev_psi, prev_valid, prev_ovf, cells, *,
-                              emax: int, tmax: int, compact: bool = True):
-    """``trie_level_advance`` with the parent-frontier gather in front
-    (cell i seeds from the previous level's cell ``cells[i, 1]``)."""
-    pidx = cells[:, 1].long()
-    seed = (prev_phi[pidx], prev_psi[pidx], prev_valid[pidx],
-            prev_ovf[pidx])
-    return trie_level_advance_ref(
-        tokens, order, start, count, *seed, cells[:, 0], cells[:, 2:],
-        emax=emax, tmax=tmax, compact=compact,
-    )
 
 
 def index_and_node_prescreen(tokens, node_req, *, n_label_keys: int):

@@ -19,8 +19,9 @@ layout registers itself instead of growing every call site:
                                  (escalation/oracle resolution is
                                  layout-independent and stays in
                                  ``PatternServer.finalize_rows``),
-* ``escalate(server, ...)``    - the wider-frontier replay for
-                                 overflow-undecided cells,
+* ``escalate(server, flight)`` - the wider-frontier replay for
+                                 the flight's overflow-undecided
+                                 cells,
 * ``on_mask(server)``          - refresh layout-side prescreen tables
                                  after a tombstone-mask change,
 * ``place(bank, n_hosts, trie)`` - partition bank rows into per-shard

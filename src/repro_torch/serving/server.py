@@ -54,6 +54,7 @@ JAX package's ``repro.serving.server``.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
 from collections import OrderedDict
@@ -75,8 +76,8 @@ from .batch import (
     pair_contains_indexed,
     token_counts_np,
     token_index,
-    trie_level_advance_gather,
-    trie_root_advance,
+    trie_level_advance,
+    trie_root_state,
 )
 from .layouts import Layout, get_layout, register_layout
 from .trie import (
@@ -233,7 +234,7 @@ def encode_queries(
     device = resolve_device(device)
     seqs = list(seqs)
     assert seqs, "cannot encode an empty query batch"
-    with trace.span("serving.encode", n=len(seqs), shared=True):
+    with trace.span("serving.encode", n=len(seqs)):
         tdb = _encode(seqs)
         tokens = torch.from_numpy(tdb.tokens).to(device)
         tmax = _pow2(max_key_bucket(tdb.tokens, n_label_keys))
@@ -256,22 +257,29 @@ class InFlightRows:
     (``PatternServer.launch_rows``): the dispatched join outputs stay
     on device until ``finalize_rows`` reads them, so a caller can keep
     launching batches (other shards, the next flush) while this one
-    computes.  ``pending`` holds layout-specific deferred device reads;
-    ``contained``/``ovf`` are the host accumulators they resolve into."""
+    computes.  ``enc`` is the batch's encoding (None where the launch
+    returned before encoding: nothing to join); ``pending`` holds
+    layout-specific deferred device reads; ``contained``/``ovf`` are the
+    host accumulators they resolve into."""
 
     layout: str
     seqs: List[TRSeq]
-    tokens: object
-    order: object
-    start: object
-    count: object
-    tmax: int
+    enc: Optional[SharedEncoding]
     contained: np.ndarray
     ovf: np.ndarray
     pending: list
     # launch timestamp (perf_counter): finalize_rows observes
     # launch-to-fence latency into the batch_seconds histogram
     t_launch: float = 0.0
+
+
+def _cell_map(n_seqs: int, width: int, b_idx: np.ndarray,
+              n_idx: np.ndarray) -> np.ndarray:
+    """[n_seqs, width] index of each launched (sequence, node) cell in
+    its cell list, -1 where no cell was launched."""
+    pos = np.full((n_seqs, width), -1, np.int64)
+    pos[b_idx, n_idx] = np.arange(len(b_idx))
+    return pos
 
 
 class PatternServer:
@@ -524,11 +532,7 @@ class PatternServer:
             # the layout's finalize is the join outputs' device reads
             with trace.span("serving.readback"):
                 get_layout(flight.layout).finalize(self, flight)
-            self._resolve_undecided(
-                flight.tokens, flight.order, flight.start,
-                flight.count, flight.tmax, flight.contained,
-                flight.ovf, flight.seqs,
-            )
+            self._resolve_undecided(flight)
             if flight.t_launch:
                 self._h_batch.observe(
                     time.perf_counter() - flight.t_launch)
@@ -541,14 +545,7 @@ class PatternServer:
 
     def _finalize_trie(self, flight: InFlightRows) -> None:
         for rows, sub, acc, ovf, n in flight.pending:
-            acc_np = acc[:n].cpu().numpy()
-            ovf_np = ovf[:n].cpu().numpy()
-            live = sub >= 0
-            idx = np.clip(sub, 0, None)
-            flight.contained[:, rows] = np.where(
-                live, acc_np[idx], False)
-            flight.ovf[:, rows] = np.where(
-                live, ovf_np[idx], False)
+            self._scatter_terminals(flight, rows, sub, acc, ovf, n)
 
     def _finalize_trie_fused(self, flight: InFlightRows) -> None:
         # one deferred read per batch: acc/ovft are [n_cells, n_slots],
@@ -556,45 +553,135 @@ class PatternServer:
         # cell (sub[b, t]; -1 = the subtree never walked for b, which
         # is exactly the per-level "never seeded" False/False)
         for rows, sub, slot, acc, ovft, n in flight.pending:
-            acc_np = acc[:n].cpu().numpy()
-            ovf_np = ovft[:n].cpu().numpy()
-            with trace.span("serving.fused_gather", cells=n):
-                live = sub >= 0
-                idx = np.clip(sub, 0, None)
-                flight.contained[:, rows] = np.where(
-                    live, acc_np[idx, slot[None, :]], False)
-                flight.ovf[:, rows] = np.where(
-                    live, ovf_np[idx, slot[None, :]], False)
+            self._scatter_terminals(flight, rows, sub, acc, ovft, n,
+                                    slot=slot, span="serving.fused_gather")
+
+    @staticmethod
+    def _scatter_terminals(flight: InFlightRows, rows, sub, acc, ovf, n,
+                           *, slot=None, only=None, span=None):
+        """Read deferred terminal bits back and scatter them into the
+        flight's host rows: bank row ``rows[t]`` of sequence b takes
+        cell ``sub[b, t]`` of ``acc``/``ovf`` (their first ``n`` cells;
+        at slot ``slot[t]`` of a fused walk's cell) where that cell was
+        launched (``sub >= 0``) and, given ``only`` [B, n_patterns],
+        where ``only`` holds.  Without ``only`` (a finalize) every other
+        cell reads False; with it (the replay) keeps its bits.  The
+        device reads run outside ``span``, the host gather inside it.
+        Returns the [B, len(rows)] mask of the cells written."""
+        acc_np = acc[:n].cpu().numpy()
+        ovf_np = ovf[:n].cpu().numpy()
+        with (trace.span(span, cells=n) if span
+              else contextlib.nullcontext()):
+            live = sub >= 0
+            keep_c = keep_o = False
+            if only is not None:
+                live &= only[:, rows]
+                keep_c, keep_o = flight.contained[:, rows], flight.ovf[:, rows]
+            at = np.clip(sub, 0, None)
+            if slot is not None:
+                at = (at, slot[None, :])
+            flight.contained[:, rows] = np.where(live, acc_np[at], keep_c)
+            flight.ovf[:, rows] = np.where(live, ovf_np[at], keep_o)
+        return live
 
     def _run_batch(self, seqs: List[TRSeq]) -> np.ndarray:
         """Exact containment rows [len(seqs), n_patterns] for one chunk."""
         return self.finalize_rows(self._launch(seqs))
 
-    def _encode_own(self, seqs: List[TRSeq]):
-        """Encode + index for a launch without a shared encoding (the
-        single-host query path): tokens uploaded once, the inverted
-        index built on the device, the prescreen counts on the host.
-        Returns ``(tokens, order, start, count, tmax, counts_np)``."""
-        bank = self.bank
-        with trace.span("serving.encode", n=len(seqs)):
-            tdb = _encode(seqs)
-            tokens = self._upload(tdb.tokens)
-            tmax = _pow2(max_key_bucket(tdb.tokens, bank.n_label_keys))
-            counts_np = token_counts_np(tdb.tokens, bank.n_label_keys)
-        t0 = time.perf_counter()
-        order, start, count = token_index(
-            tokens, n_label_keys=bank.n_label_keys)
-        _fence("serving.token_index", t0, self.device)
-        return tokens, order, start, count, tmax, counts_np
+    def _flight(self, seqs: List[TRSeq],
+                enc: Optional[SharedEncoding] = None) -> InFlightRows:
+        """A batch with all-False rows and no deferred read yet."""
+        shape = (len(seqs), self.bank.n_patterns)
+        return InFlightRows(
+            layout=self.layout.name, seqs=seqs, enc=enc,
+            contained=np.zeros(shape, bool), ovf=np.zeros(shape, bool),
+            pending=[],
+        )
 
-    def _encoding(self, seqs: List[TRSeq],
-                  shared: Optional[SharedEncoding]):
-        """``_encode_own`` or the given shared encoding, as one tuple."""
+    def _encoded(self, seqs: List[TRSeq],
+                 shared: Optional[SharedEncoding]) -> SharedEncoding:
+        """The batch's encoding: ``shared`` where the caller passes one,
+        else ``encode_queries`` of the batch on the server's device (the
+        single-host query path)."""
         if shared is None:
-            return self._encode_own(seqs)
+            return encode_queries(seqs, n_label_keys=self.bank.n_label_keys,
+                                  device=self.device)
         assert shared.n_label_keys == self.bank.n_label_keys
-        return (shared.tokens, shared.order, shared.start, shared.count,
-                shared.tmax, shared.counts_np)
+        return shared
+
+    def _prescreen(self, enc: SharedEncoding, n: int,
+                   req: np.ndarray) -> np.ndarray:
+        """[n, len(req)] counts prescreen of the batch's first ``n``
+        sequences against requirement rows ``req``: a host compare of
+        the host counts, bit-identical to the device prescreen (same
+        int32 counts, same rows) with no device read in the launch.
+        Counts the batch's device batch."""
+        with trace.span("serving.prescreen_host", n=n):
+            possible = (
+                enc.counts_np[:n, None, :] >= req[None, :, :]
+            ).all(-1)
+        self.stats["device_batches"] += 1
+        return possible
+
+    def _group_join(self, enc: SharedEncoding, steps_g, b_idx, p_idx, *,
+                    emax: int, span: str, **args):
+        """Join the (sequence ``b_idx[i]``, group pattern ``p_idx[i]``)
+        cells of one program-length group over their whole program at
+        frontier capacity ``emax``: the pair lists padded to a power of
+        two and uploaded, one uniform-length join, fenced as ``span``.
+        Returns the device ``(contained, overflow)`` of the padded
+        cells."""
+        n = len(b_idx)
+        npad = _pow2(n)
+        bi = np.zeros(npad, np.int32)
+        pi = np.zeros(npad, np.int32)
+        bi[:n], pi[:n] = b_idx, p_idx
+        t0 = time.perf_counter()
+        out = pair_contains_indexed(
+            enc.tokens, enc.order, enc.start, enc.count, steps_g,
+            self._upload(bi), self._upload(pi),
+            nv=self.bank.nv, emax=emax, tmax=enc.tmax,
+            uniform_length=True,
+        )
+        _fence(span, t0, self.device, cells=n, **args)
+        return out
+
+    def _trie_advance(self, enc: SharedEncoding, d: int, b_idx, n_idx,
+                      prev, *, emax: int, compact: bool, span: str):
+        """Advance the (sequence ``b_idx[i]``, node ``n_idx[i]``) cells
+        of trie level ``d`` one step at frontier capacity ``emax``,
+        fenced as ``span``.  One packed [npad, 2+F] upload carries each
+        cell's sequence, parent cell and step row.  Level-0 cells seed
+        from the root state; deeper cells from their parent's frontier
+        in ``prev`` = (the previous level's device frontiers, its host
+        cell map), gathered on the device by the upload's column 1.
+        Returns ``trie_level_advance``'s outputs."""
+        lv = self._tlevels[d]
+        n = len(b_idx)
+        cells = np.zeros((_pow2(n), 2 + self.bank.steps.shape[2]),
+                         np.int32)
+        cells[:n, 0] = b_idx
+        cells[:n, 2:] = lv["steps"][n_idx]
+        if d:
+            frontier, pos_prev = prev
+            par = pos_prev[b_idx, lv["parent_pos"][n_idx]]
+            assert (par >= 0).all(), "parent cell missing below a live cell"
+            cells[:n, 1] = par
+        t0 = time.perf_counter()
+        cells = self._upload(cells)
+        if d:
+            pidx = cells[:, 1].long()
+            seed = tuple(x[pidx] for x in frontier)
+        else:
+            seed = trie_root_state(cells.shape[0], len(self._tlevels),
+                                   self.bank.nv, enc.tokens.device)
+        out = trie_level_advance(
+            enc.tokens, enc.order, enc.start, enc.count, *seed,
+            cells[:, 0], cells[:, 2:], emax=emax, tmax=enc.tmax,
+            compact=compact,
+        )
+        _fence(span, t0, self.device, level=d, cells=n)
+        return out
 
     def _launch_flat(
         self, seqs: List[TRSeq],
@@ -602,22 +689,11 @@ class PatternServer:
     ) -> InFlightRows:
         bank = self.bank
         # one index build per batch, shared by every group join
-        tokens, order, start, count, tmax, counts_np = self._encoding(
-            seqs, shared)
-        # host compare against the host counts: bit-identical to the
-        # device prescreen (same int32 counts, same req rows) and no
-        # device read in the launch
-        with trace.span("serving.prescreen_host", n=len(seqs)):
-            possible = (
-                counts_np[: len(seqs), None, :]
-                >= self._req_np[None, : bank.n_patterns, :]
-            ).all(-1)
-        self.stats["device_batches"] += 1
+        flight = self._flight(seqs, self._encoded(seqs, shared))
+        possible = self._prescreen(flight.enc, len(seqs),
+                                   self._req_np[: bank.n_patterns])
         self.stats["pairs_possible"] += int(possible.sum())
         self.stats["pairs_prescreened"] += int(possible.size)
-        contained = np.zeros((len(seqs), bank.n_patterns), bool)
-        ovf_out = np.zeros_like(contained)
-        pending = []
         for rows, steps_g in self._groups:
             b_idx, g_idx = np.nonzero(possible[:, rows])
             if not len(b_idx):
@@ -626,29 +702,15 @@ class PatternServer:
                 # single-TR patterns: the counts prescreen IS the exact
                 # containment test (one matching-key token always embeds:
                 # fresh vertices bind freely under an empty psi)
-                contained[b_idx, rows[g_idx]] = True
+                flight.contained[b_idx, rows[g_idx]] = True
                 continue
             n = len(b_idx)
             self.stats["joined_steps"] += n * int(steps_g.shape[1])
-            npad = _pow2(n)
-            bi = np.zeros(npad, np.int32)
-            pi = np.zeros(npad, np.int32)
-            bi[:n], pi[:n] = b_idx, g_idx
-            t0 = time.perf_counter()
-            c, o = pair_contains_indexed(
-                tokens, order, start, count, steps_g,
-                self._upload(bi), self._upload(pi),
-                nv=bank.nv, emax=self.emax, tmax=tmax,
-                uniform_length=True,
-            )
-            _fence("serving.join", t0, self.device,
-                   steps=int(steps_g.shape[1]), cells=n)
-            pending.append((b_idx, rows[g_idx], c, o, n))
-        return InFlightRows(
-            layout="flat", seqs=seqs, tokens=tokens, order=order,
-            start=start, count=count, tmax=tmax, contained=contained,
-            ovf=ovf_out, pending=pending,
-        )
+            c, o = self._group_join(
+                flight.enc, steps_g, b_idx, g_idx, emax=self.emax,
+                span="serving.join", steps=int(steps_g.shape[1]))
+            flight.pending.append((b_idx, rows[g_idx], c, o, n))
+        return flight
 
     def approx_rows(self, seqs: Sequence[TRSeq]) -> np.ndarray:
         """Prescreen-only approximate rows [len(seqs), n_patterns]: the
@@ -664,16 +726,16 @@ class PatternServer:
                 seqs, self._req_np[: bank.n_patterns], bank.n_label_keys
             )
 
-    def _resolve_undecided(self, tokens, order, start, count, tmax,
-                           contained, ovf, seqs):
-        """Resolve every ``ovf & ~contained`` cell in place - the only
-        undecided ones (batch.py) - first through a wider device
-        frontier (trie layout: re-seed only the failing subtrees and
-        replay the level-synchronous scan at ``emax_retry``, keeping
-        the shared-prefix savings on the retry path; flat layout:
-        uniform-length replay per program-length group), then the
-        per-cell host oracle.  Both layouts end exact: this is the
-        whole exactness contract."""
+    def _resolve_undecided(self, flight: InFlightRows) -> None:
+        """Resolve every ``ovf & ~contained`` cell of the flight in
+        place - the only undecided ones (batch.py) - first through a
+        wider device frontier (trie layout: re-seed only the failing
+        subtrees and replay the level-synchronous scan at
+        ``emax_retry``, keeping the shared-prefix savings on the retry
+        path; flat layout: uniform-length replay per program-length
+        group), then the per-cell host oracle.  Both layouts end exact:
+        this is the whole exactness contract."""
+        contained, ovf = flight.contained, flight.ovf
         if self._row_mask is not None:
             # tombstoned rows answer False, never escalate.  The flat
             # prescreen already excludes them, but a masked *terminal*
@@ -688,18 +750,16 @@ class PatternServer:
             trace.mark("overflow_escalated")
             if self.emax_retry > self.emax:
                 with trace.span("serving.escalate"):
-                    self.layout.escalate(self, tokens, order, start,
-                                         count, tmax, contained, ovf)
+                    self.layout.escalate(self, flight)
         with trace.span("serving.oracle"):
             for b, p in zip(*np.nonzero(ovf & ~contained)):
-                contained[b, p] = contains(bank.patterns[p], seqs[b])
+                contained[b, p] = contains(bank.patterns[p], flight.seqs[b])
                 self.stats["host_fallback_cells"] += 1
 
-    def _escalate_flat(self, tokens, order, start, count, tmax,
-                       contained, ovf):
+    def _escalate_flat(self, flight: InFlightRows) -> None:
         """Widen undecided cells through a uniform-length replay of the
         full step program, one device batch per program-length group."""
-        bank = self.bank
+        contained, ovf = flight.contained, flight.ovf
         und_b, und_p = np.nonzero(ovf & ~contained)
         und_g = self._row_group[und_p]
         for gi, (rows, steps_g) in enumerate(self._groups):
@@ -708,25 +768,15 @@ class PatternServer:
                 continue
             ub, up = und_b[sel], und_p[sel]
             m = len(ub)
-            mpad = _pow2(m)
-            bi = np.zeros(mpad, np.int32)
-            pi = np.zeros(mpad, np.int32)
-            bi[:m], pi[:m] = ub, self._row_pos[up]
-            t0 = time.perf_counter()
-            c2, o2 = pair_contains_indexed(
-                tokens, order, start, count, steps_g,
-                self._upload(bi), self._upload(pi),
-                nv=bank.nv, emax=self.emax_retry, tmax=tmax,
-                uniform_length=True,
-            )
-            _fence("serving.escalate.join", t0, self.device, cells=m)
+            c2, o2 = self._group_join(
+                flight.enc, steps_g, ub, self._row_pos[up],
+                emax=self.emax_retry, span="serving.escalate.join")
             contained[ub, up] = c2[:m].cpu().numpy()
             ovf[ub, up] = o2[:m].cpu().numpy()
             self.stats["escalated_cells"] += m
             self.stats["joined_steps"] += m * int(steps_g.shape[1])
 
-    def _escalate_trie(self, tokens, order, start, count, tmax,
-                       contained, ovf):
+    def _escalate_trie(self, flight: InFlightRows) -> None:
         """Trie-native escalation: re-run the level-synchronous scan at
         ``emax_retry`` over only the failing sub-trie - the union of
         the undecided rows' root-to-terminal paths - so undecided
@@ -735,9 +785,10 @@ class PatternServer:
         prescreen here: every replayed cell already passed it on the
         first pass, and a pruned path cannot host an undecided
         terminal."""
-        t, bank = self.trie, self.bank
-        und_b, und_p = np.nonzero(ovf & ~contained)
-        B0 = contained.shape[0]
+        t = self.trie
+        und = flight.ovf & ~flight.contained
+        und_b, und_p = np.nonzero(und)
+        B0 = und.shape[0]
         # cells to replay: union of the undecided rows' terminal paths
         need = np.zeros((B0, max(t.n_nodes, 1)), bool)
         for b, p in zip(und_b, und_p):
@@ -747,58 +798,26 @@ class PatternServer:
                 n = int(t.node_parent[n])
         und_rows = np.unique(und_p)
         term_depth = t.node_depth[t.terminal_node[und_rows]]  # 1-based
-        und_mask = np.zeros_like(contained)
-        und_mask[und_b, und_p] = True
-        F = bank.steps.shape[2]
         prev = None
-        pos_prev = None
         fetch = []
         for d, lv in enumerate(self._tlevels):
             b_idx, n_idx = np.nonzero(need[:, lv["nodes"]])
             if not len(b_idx):
                 break  # paths end: nothing undecided deeper
-            n_cells = len(b_idx)
-            self.stats["joined_steps"] += n_cells
-            npad = _pow2(n_cells)
-            cells = np.zeros((npad, 2 + F), np.int32)
-            cells[:n_cells, 0] = b_idx
-            cells[:n_cells, 2:] = lv["steps"][n_idx]
-            kw = dict(emax=self.emax_retry, tmax=tmax, compact=True)
-            t0 = time.perf_counter()
-            if d == 0:
-                out = trie_root_advance(
-                    tokens, order, start, count, self._upload(cells),
-                    ni=len(self._tlevels), nv=bank.nv, **kw,
-                )
-            else:
-                par = pos_prev[b_idx, lv["parent_pos"][n_idx]]
-                assert (par >= 0).all(), "escalation path parent missing"
-                cells[:n_cells, 1] = par
-                out = trie_level_advance_gather(
-                    tokens, order, start, count, *prev,
-                    self._upload(cells), **kw,
-                )
-            _fence("serving.escalate.trie_level", t0, self.device,
-                   level=d, cells=n_cells)
-            phi, psi, valid, acc, ovf_state, ovf_term = out
-            prev = (phi, psi, valid, ovf_state)
-            cell_pos = np.full((B0, len(lv["nodes"])), -1, np.int64)
-            cell_pos[b_idx, n_idx] = np.arange(n_cells)
-            pos_prev = cell_pos
+            self.stats["joined_steps"] += len(b_idx)
+            phi, psi, valid, acc, ovf_state, ovf_term = self._trie_advance(
+                flight.enc, d, b_idx, n_idx, prev, emax=self.emax_retry,
+                compact=True, span="serving.escalate.trie_level")
+            cell_pos = _cell_map(B0, len(lv["nodes"]), b_idx, n_idx)
+            prev = ((phi, psi, valid, ovf_state), cell_pos)
             rows_d = und_rows[term_depth == d + 1]
             if len(rows_d):
                 sub = cell_pos[:, t.node_pos[t.terminal_node[rows_d]]]
-                fetch.append((rows_d, sub, acc, ovf_term, n_cells))
-        for rows, sub, acc, ovf_t, n in fetch:
-            acc_np = acc[:n].cpu().numpy()
-            ovf_np = ovf_t[:n].cpu().numpy()
+                fetch.append((rows_d, sub, acc, ovf_term, len(b_idx)))
+        for entry in fetch:
             # touch only the cells that were actually undecided: their
             # neighbours in these rows are already exact
-            live = (sub >= 0) & und_mask[:, rows]
-            idx = np.clip(sub, 0, None)
-            contained[:, rows] = np.where(
-                live, acc_np[idx], contained[:, rows])
-            ovf[:, rows] = np.where(live, ovf_np[idx], ovf[:, rows])
+            live = self._scatter_terminals(flight, *entry, only=und)
             self.stats["escalated_cells"] += int(live.sum())
 
     def _launch_trie(
@@ -818,68 +837,20 @@ class PatternServer:
         then the host oracle."""
         bank = self.bank
         B0 = len(seqs)
-        contained = np.zeros((B0, bank.n_patterns), bool)
-        ovf_out = np.zeros((B0, bank.n_patterns), bool)
-
-        def flight(tokens=None, order=None, start=None, count=None,
-                   tmax=1, fetch=()):
-            return InFlightRows(
-                layout="trie", seqs=seqs, tokens=tokens, order=order,
-                start=start, count=count, tmax=tmax,
-                contained=contained, ovf=ovf_out, pending=list(fetch),
-            )
-
+        flight = self._flight(seqs)
         if not self._tlevels or not bank.n_patterns:
-            return flight()
-        tokens, order, start, count, tmax, counts_np = self._encoding(
-            seqs, shared)
-        with trace.span("serving.prescreen_host", n=len(seqs)):
-            poss = (
-                counts_np[:B0, None, :] >= self._node_req_np[None, :, :]
-            ).all(-1)
-        self.stats["device_batches"] += 1
+            return flight
+        flight.enc = enc = self._encoded(seqs, shared)
+        poss = self._prescreen(enc, B0, self._node_req_np)
         # node cells, not pattern pairs: a pattern spans several nodes,
         # so these are NOT comparable to the flat layout's pairs_* keys
         self.stats["cells_possible"] += int(poss.sum())
         self.stats["cells_prescreened"] += int(poss.size)
-        D = len(self._tlevels)
-        prev = None      # device frontiers of the previous level's cells
-        pos_prev = None  # [B0, m_{d-1}] internal-cell index, -1 = none
-        fetch = []       # deferred device->host reads (one sync at end)
-
-        F = bank.steps.shape[2]
-
-        def _cells(b_idx, n_idx, lv, d, compact):
-            """Advance the given (sequence, node) cells one step.  One
-            packed [N, 2+F] upload carries cell_b / parent idx / step
-            rows."""
-            n = len(b_idx)
-            npad = _pow2(n)
-            cells = np.zeros((npad, 2 + F), np.int32)
-            cells[:n, 0] = b_idx
-            cells[:n, 2:] = lv["steps"][n_idx]
-            kw = dict(emax=self.emax, tmax=tmax, compact=compact)
-            t0 = time.perf_counter()
-            if d == 0:
-                out = trie_root_advance(
-                    tokens, order, start, count, self._upload(cells),
-                    ni=D, nv=bank.nv, **kw,
-                )
-            else:
-                par = pos_prev[b_idx, lv["parent_pos"][n_idx]]
-                assert (par >= 0).all(), "parent cell pruned below child"
-                cells[:n, 1] = par
-                out = trie_level_advance_gather(
-                    tokens, order, start, count, *prev,
-                    self._upload(cells), **kw,
-                )
-            _fence("serving.trie_advance", t0, self.device,
-                   level=d, cells=n)
-            return out
-
+        # the previous level's internal cells: (device frontiers, host
+        # cell map); terminal reads are deferred (one sync at the end)
+        prev = None
         for d, lv in enumerate(self._tlevels):
-            act = poss[:, lv["nodes"]]
-            b_idx, n_idx = np.nonzero(act)
+            b_idx, n_idx = np.nonzero(poss[:, lv["nodes"]])
             if not len(b_idx):
                 break  # prescreen is monotone: no deeper cell survives
             with trace.span("serving.trie_level", level=d,
@@ -892,41 +863,36 @@ class PatternServer:
                 # the exact containment test for single-TR patterns (a
                 # matching-key token always embeds under an empty psi).
                 if len(lb):  # every leaf is some pattern's terminal
-                    cell_leaf = np.full(
-                        (B0, len(lv["nodes"])), -1, np.int64)
-                    cell_leaf[lb, ln] = np.arange(len(lb))
-                    sub = cell_leaf[:, lv["term_pos_leaf"]]
+                    sub = _cell_map(B0, len(lv["nodes"]), lb, ln)[
+                        :, lv["term_pos_leaf"]]
                     if d == 0:
-                        contained[:, lv["term_rows_leaf"]] = sub >= 0
+                        flight.contained[:, lv["term_rows_leaf"]] = sub >= 0
                     else:
                         self.stats["joined_steps"] += len(lb)
-                        acc, ovf = _cells(lb, ln, lv, d, compact=False)
-                        fetch.append((lv["term_rows_leaf"], sub, acc,
-                                      ovf, len(lb)))
+                        acc, ovf = self._trie_advance(
+                            enc, d, lb, ln, prev, emax=self.emax,
+                            compact=False, span="serving.trie_advance")
+                        flight.pending.append((lv["term_rows_leaf"], sub,
+                                               acc, ovf, len(lb)))
                 # ---- internal cells: compacted frontiers seed children
-                n_int = len(ib)
-                if n_int:
-                    self.stats["joined_steps"] += n_int
-                    phi, psi, valid, acc, ovf_state, ovf_term = _cells(
-                        ib, inn, lv, d, compact=True
-                    )
-                    # children inherit the full path overflow; a
-                    # terminal ending at this node is undecided only via
-                    # ovf_term (its accept bit is exact regardless of
-                    # what this step's compaction dropped)
-                    prev = (phi, psi, valid, ovf_state)
-                    cell_int = np.full(
-                        (B0, len(lv["nodes"])), -1, np.int64)
-                    cell_int[ib, inn] = np.arange(n_int)
-                    pos_prev = cell_int
-                    if len(lv["term_rows_int"]):
-                        sub = cell_int[:, lv["term_pos_int"]]
-                        fetch.append((lv["term_rows_int"], sub, acc,
-                                      ovf_term, n_int))
-                else:
+                if not len(ib):
                     break  # no internal frontier: nothing seeds deeper
-        return flight(tokens=tokens, order=order, start=start,
-                      count=count, tmax=tmax, fetch=fetch)
+                self.stats["joined_steps"] += len(ib)
+                phi, psi, valid, acc, ovf_state, ovf_term = \
+                    self._trie_advance(enc, d, ib, inn, prev,
+                                       emax=self.emax, compact=True,
+                                       span="serving.trie_advance")
+                # children inherit the full path overflow; a terminal
+                # ending at this node is undecided only via ovf_term
+                # (its accept bit is exact regardless of what this
+                # step's compaction dropped)
+                cell_int = _cell_map(B0, len(lv["nodes"]), ib, inn)
+                prev = ((phi, psi, valid, ovf_state), cell_int)
+                if len(lv["term_rows_int"]):
+                    sub = cell_int[:, lv["term_pos_int"]]
+                    flight.pending.append((lv["term_rows_int"], sub, acc,
+                                           ovf_term, len(ib)))
+        return flight
 
     def _launch_trie_fused(
         self, seqs: List[TRSeq],
@@ -949,26 +915,11 @@ class PatternServer:
         bank = self.bank
         B0 = len(seqs)
         pack = self._tpack
-        contained = np.zeros((B0, bank.n_patterns), bool)
-        ovf_out = np.zeros((B0, bank.n_patterns), bool)
-
-        def flight(tokens=None, order=None, start=None, count=None,
-                   tmax=1, fetch=()):
-            return InFlightRows(
-                layout="trie_fused", seqs=seqs, tokens=tokens,
-                order=order, start=start, count=count, tmax=tmax,
-                contained=contained, ovf=ovf_out, pending=list(fetch),
-            )
-
+        flight = self._flight(seqs)
         if not self._tlevels or not bank.n_patterns:
-            return flight()
-        tokens, order, start, count, tmax, counts_np = self._encoding(
-            seqs, shared)
-        with trace.span("serving.prescreen_host", n=len(seqs)):
-            poss = (
-                counts_np[:B0, None, :] >= self._node_req_np[None, :, :]
-            ).all(-1)
-        self.stats["device_batches"] += 1
+            return flight
+        flight.enc = enc = self._encoded(seqs, shared)
+        poss = self._prescreen(enc, B0, self._node_req_np)
         # fused cells are walk *entry points* (subtree shards +
         # singleton leaves), not per-node cells: the per-node prescreen
         # runs in kernel, so only entries are prescreened host-side.  A
@@ -991,12 +942,11 @@ class PatternServer:
             self.stats["cells_prescreened"] += \
                 int(shard_poss.size) + int(leaf_poss.size)
             if len(pack.leaf_rows):
-                contained[:, pack.leaf_rows] = leaf_poss
+                flight.contained[:, pack.leaf_rows] = leaf_poss
             b_idx, s_idx = np.nonzero(shard_poss)
             n = len(b_idx)
             if not n:
-                return flight(tokens=tokens, order=order, start=start,
-                              count=count, tmax=tmax)
+                return flight
             # every surviving cell walks its full padded shard in kernel
             self.stats["joined_steps"] += n * pack.n_slots
             npad = _bucket34(n)
@@ -1006,21 +956,17 @@ class PatternServer:
             cells = self._upload(cells)
         t0 = time.perf_counter()
         acc, ovft = fused_trie_walk(
-            tokens, order, start, count, cells,
+            enc.tokens, enc.order, enc.start, enc.count, cells,
             self._pk_steps, self._pk_parent, self._pk_req,
             ni=len(self._tlevels), nv=bank.nv, emax=self.emax,
-            tmax=tmax,
+            tmax=enc.tmax,
         )
         _fence("serving.fused_walk", t0, self.device, cells=n)
         # the row -> cell map, on the host while the walk runs
-        cell_of = np.full((B0, pack.n_subtrees), -1, np.int64)
-        cell_of[b_idx, s_idx] = np.arange(n)
-        sub = cell_of[:, pack.term_sub]
-        return flight(
-            tokens=tokens, order=order, start=start, count=count,
-            tmax=tmax,
-            fetch=[(pack.term_rows, sub, pack.term_slot, acc, ovft, n)],
-        )
+        sub = _cell_map(B0, pack.n_subtrees, b_idx, s_idx)[:, pack.term_sub]
+        flight.pending.append(
+            (pack.term_rows, sub, pack.term_slot, acc, ovft, n))
+        return flight
 
     # ------------------------------------------------------------ scoring
     def _score(self, contained: np.ndarray, k: int) -> List[Tuple[int, int]]:

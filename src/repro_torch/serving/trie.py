@@ -51,6 +51,7 @@ from typing import Dict, List, Mapping, Tuple, Union
 import numpy as np
 
 from ..core.gtrace import MiningResult
+from ..kernels import REQ_MASKED
 from .bank import (
     STEP_FIELDS,
     PatternBank,
@@ -320,11 +321,6 @@ def extend_trie(trie: TrieBank, bank: PatternBank) -> TrieBank:
     _insert_programs(bank, range(old_n, bank.n_patterns), children,
                      steps, parents, depths, terminal)
     return _finalize_trie(bank, steps, parents, depths, terminal)
-
-
-#: prescreen row value that no token-count vector ever satisfies - a
-#: masked (tombstoned) pattern or subtree is never joined
-REQ_MASKED = np.iinfo(np.int32).max
 
 
 def masked_node_req(trie: TrieBank, active: np.ndarray) -> np.ndarray:

@@ -13,10 +13,10 @@ import torch
 
 from repro_torch.core.compile import compile_sequence
 from repro_torch.data.synthetic import random_graph_sequence
+from repro_torch.kernels import REQ_MASKED
 from repro_torch.kernels.containment import ops as cops
 from repro_torch.kernels.step_compact import ops as sops
 from repro_torch.kernels.trie_walk import ops as wops
-from repro_torch.kernels.trie_walk.ref import REQ_MASKED
 from repro_torch.mining.driver import AcceleratedMiner
 from repro_torch.serving import batch
 from repro_torch.serving.bank import compile_bank

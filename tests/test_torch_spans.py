@@ -286,3 +286,70 @@ def test_the_range_option_is_off_by_default():
     finally:
         trace.disable()
     assert trace.tracer.ranges is None
+
+
+# every serving span a traced batch records at emax 1 / emax_retry 2,
+# with its parent: the batch's launch, its read back and its escalation
+SERVING_SPANS = {
+    ("serving.query", None),
+    ("serving.cache", "serving.query"),
+    ("serving.batch", "serving.query"),
+    ("serving.finalize_rows", "serving.query"),
+    ("serving.finalize", "serving.query"),
+    ("serving.encode", "serving.batch"),
+    ("serving.token_index", "serving.batch"),
+    ("serving.token_index.device", "serving.batch"),
+    ("serving.prescreen_host", "serving.batch"),
+    ("serving.readback", "serving.finalize_rows"),
+    ("serving.escalate", "serving.finalize_rows"),
+    ("serving.oracle", "serving.finalize_rows"),
+}
+TRIE_ESCALATION_SPANS = {
+    ("serving.escalate.trie_level", "serving.escalate"),
+    ("serving.escalate.trie_level.device", "serving.escalate"),
+    ("serving.step", "serving.escalate.trie_level"),
+}
+LAYOUT_SPANS = {
+    "flat": {
+        ("serving.join", "serving.batch"),
+        ("serving.join.device", "serving.batch"),
+        ("serving.step", "serving.join"),
+        ("serving.escalate.join", "serving.escalate"),
+        ("serving.escalate.join.device", "serving.escalate"),
+        ("serving.step", "serving.escalate.join"),
+    },
+    "trie": TRIE_ESCALATION_SPANS | {
+        ("serving.trie_level", "serving.batch"),
+        ("serving.trie_advance", "serving.trie_level"),
+        ("serving.trie_advance.device", "serving.trie_level"),
+        ("serving.step", "serving.trie_advance"),
+    },
+    "trie_fused": TRIE_ESCALATION_SPANS | {
+        ("serving.fused_cells", "serving.batch"),
+        ("serving.fused_walk", "serving.batch"),
+        ("serving.fused_walk.device", "serving.batch"),
+        ("serving.fused_gather", "serving.readback"),
+    },
+}
+
+
+@pytest.mark.parametrize("layout", LAYOUTS)
+def test_a_traced_batch_records_every_serving_span_under_its_parent(
+        bank, queries, layout):
+    """Under full tracing at emax 1 / emax_retry 2 (undecided cells,
+    so the escalation runs), the serving spans of each layout are
+    exactly these (name, parent) pairs: the join, trie-level and
+    escalation spans included, each dispatch beside its fenced half."""
+    (rows, calls, walks, stats), ev = _run("full", lambda: _serve(
+        bank, queries, emax=1, emax_retry=2, bank_layout=layout))
+    assert stats["escalated_cells"] > 0
+    pairs = collections.Counter(
+        (e["name"], p) for e, p in zip(ev, _parents(ev))
+        if e["name"].startswith("serving."))
+    assert set(pairs) == SERVING_SPANS | LAYOUT_SPANS[layout]
+    assert pairs[("serving.batch", "serving.query")] \
+        == pairs[("serving.readback", "serving.finalize_rows")] \
+        == pairs[("serving.prescreen_host", "serving.batch")] \
+        == stats["device_batches"] > 1
+    assert sum(n for (name, _), n in pairs.items()
+               if name == "serving.step") == calls

@@ -16,10 +16,9 @@ import torch
 from repro_torch.core.compile import compile_sequence
 from repro_torch.core.containment import contains
 from repro_torch.data.synthetic import random_graph_sequence
-from repro_torch.kernels import INT32_MIN
+from repro_torch.kernels import INT32_MIN, gather_cell_rows
 from repro_torch.kernels.step_compact import ops
 from repro_torch.kernels.step_compact.ref import step_compact_core
-from repro_torch.kernels.trie_walk.ref import gather_rows
 from repro_torch.mining.driver import AcceleratedMiner
 from repro_torch.serving import batch
 from repro_torch.serving.bank import compile_bank
@@ -67,8 +66,8 @@ def _parent_epilogue(bits, tok_w, phi, psi, valid, step_k, ct_sel, pu_c,
     e_old = sel // (Tm * 2)
     t_w = (sel // 2) % Tm
     var = sel % 2
-    phi_src = gather_rows(phi, e_old)
-    psi_src = gather_rows(psi, e_old)
+    phi_src = gather_cell_rows(phi, e_old)
+    psi_src = gather_cell_rows(psi, e_old)
 
     def wfield(f):
         return torch.gather(tok_w[..., f], 1, t_w.long())
