@@ -16,12 +16,15 @@ per-row ``pattern_id`` axis (stacked ``existing`` tables and per-row
 ``nv``/``n_pat``/``mode`` vectors, gathered inside the kernel - see
 ``engine.match_signatures_batch``), and ONE dispatch covers the whole
 chunk instead of one per pattern.  Signatures come back namespaced by
-``pattern_id`` (``engine.aggregate_host_batch``), so the host finalize
-splits per pattern exactly as before; child embeddings are rebuilt with
-numpy scatter/stack ops over the whole (e,t) row set rather than a
-Python loop per row.  ``dispatch="pattern"`` keeps the seed's
-one-pattern-at-a-time traversal (same code path, slices of size one) as
-the benchmark baseline; both dispatch modes return bit-equal
+``pattern_id``; each chunk's valid signatures are kept as flat arrays
+(``engine.signature_entries``) and the whole slice's are grouped per
+(pattern, signature) once, by one stable sort (``engine.group_slice``),
+so no Python set or dict is built per signature until a child is
+emitted; child embeddings are rebuilt with numpy scatter/stack ops over
+the whole (e,t) row set rather than a Python loop per row.
+``dispatch="pattern"`` keeps the seed's one-pattern-at-a-time
+traversal (same code path, slices of size one) as the benchmark
+baseline; both dispatch modes return bit-equal
 ``MiningResult``s.  On a CUDA device every chunk is one launch of the
 hand-written match_count kernel; on the CPU (``device="cpu"``) the same
 call runs its plain PyTorch version.
@@ -43,9 +46,10 @@ DB encode and token upload) and ``mining.mine``, whose slices are
 slice's pattern encode and its blocks' concatenation, then each chunk's
 padding), ``mining.upload`` (one per host-to-device copy), the measured
 ``mining.dispatch`` / ``mining.device`` intervals of each chunk,
-``mining.aggregate`` (each chunk's signatures read back and merged),
-and per item ``mining.children``, holding a ``mining.rebuild`` per
-rebuilt child.
+``mining.aggregate`` (each chunk's signatures read back and kept as flat
+arrays), ``mining.group`` (the slice's signatures grouped, once a
+slice), and per item ``mining.children``, holding a ``mining.rebuild``
+per rebuilt child.
 
 The work pool holds each pattern's embeddings as an ``EmbBlock`` (the
 padded int32 ``gid`` / ``phi`` / ``psi`` rows the scans read): a child's
@@ -53,9 +57,11 @@ rows are rebuilt straight into its block, and a slice's blocks are
 concatenated into the chunks, so no row becomes a Python ``Emb`` tuple
 on the way.  ``Emb`` lists are taken at the public entries
 (``expand_children*``, a resumed checkpoint) and encoded once there.
-Counters: ``mining.emb_rows`` (rows rebuilt into blocks) and
+Counters: ``mining.emb_rows`` (rows rebuilt into blocks),
 ``mining.emb_decoded`` (rows decoded back into ``Emb`` tuples: only a
-checkpoint's save does that).
+checkpoint's save does that), ``mining.sig_rows`` (valid signature
+entries grouped) and ``mining.sig_keys`` (distinct (pattern, signature)
+keys they group into).
 """
 from __future__ import annotations
 
@@ -90,8 +96,10 @@ from .engine import (
     MODE_ROOT,
     MODE_TAIL,
     MODE_VERTEX_PHASE,
-    aggregate_host_batch,
+    SliceGroups,
+    group_slice,
     match_signatures_batch,
+    signature_entries,
 )
 
 MAX_PATTERN_TRS = 64
@@ -158,6 +166,8 @@ class AcceleratedMiner:
         self._c_emb_rows = self.metrics.counter(f"{metrics_ns}.emb_rows")
         self._c_emb_decoded = self.metrics.counter(
             f"{metrics_ns}.emb_decoded")
+        self._c_sig_rows = self.metrics.counter(f"{metrics_ns}.sig_rows")
+        self._c_sig_keys = self.metrics.counter(f"{metrics_ns}.sig_keys")
         # what a child pruned by ``want_embs`` comes back with
         self._no_embs = EmbBlock.from_embs([], self.ni, self.nv)
 
@@ -195,12 +205,12 @@ class AcceleratedMiner:
     # ------------------------------------------------------------- scans
     def _scan_batch(
         self, items: List[Tuple[Pattern, EmbBlock]], modes: List[int]
-    ) -> List[Dict[int, Tuple[Set[int], List[np.ndarray]]]]:
+    ) -> SliceGroups:
         """Run the device scans for a wavefront slice: all items' rows
         are packed into shared pow-2 chunks (a chunk freely spans
         pattern boundaries) and each chunk is ONE device dispatch.
-        Returns, per item, ``{sig: (gid_set, (e,t) rows)}`` with ``e``
-        local to the item's embedding block."""
+        Returns the slice's signatures grouped per (item, signature),
+        with ``e`` local to the item's embedding block."""
         n = len(items)
         with trace.span("mining.encode"):
             n_pad = _pow2_pad(n)
@@ -225,12 +235,7 @@ class AcceleratedMiner:
         nv_j = self._to_device(nv_stack)
         npat_j = self._to_device(npat_stack)
         mode_j = self._to_device(mode_stack)
-        merged: List[Dict[int, Tuple[Set[int], List[np.ndarray]]]] = [
-            {} for _ in items
-        ]
-        if R == 0:
-            return merged
-
+        chunks = []
         for start in range(0, R, self.e_batch):
             E = min(self.e_batch, R - start)
             with trace.span("mining.encode"):
@@ -271,19 +276,13 @@ class AcceleratedMiner:
                                t0, t1 - t0, rows=int(Epad))
             trace.add_complete("mining.device", "device", t1, t2 - t1)
             with trace.span("mining.aggregate"):
-                for (pi, sig), (gset, et) in aggregate_host_batch(
-                    sigs.cpu().numpy(), gid, pid
-                ).items():
-                    et = et.copy()
-                    # chunk-local row -> this item's embedding index
-                    et[:, 0] += start - offs[pi]
-                    got = merged[pi].get(sig)
-                    if got is None:
-                        merged[pi][sig] = (gset, [et])
-                    else:
-                        got[0].update(gset)
-                        got[1].append(et)
-        return merged
+                keys, e, t, g = signature_entries(sigs.cpu().numpy(), gid, pid)
+                chunks.append((keys, e + start, t, g))
+        with trace.span("mining.group"):
+            groups = group_slice(chunks, offs)
+            self._c_sig_rows.inc(len(groups.e))
+            self._c_sig_keys.inc(len(groups.sig))
+        return groups
 
     # -------------------------------------------------- embedding rebuild
     def _rebuild_embeddings(
@@ -291,7 +290,8 @@ class AcceleratedMiner:
         pattern: Pattern,
         block: EmbBlock,
         sig: int,
-        et_rows: List[np.ndarray],
+        e_i: np.ndarray,
+        t_i: np.ndarray,
         child_raw: Pattern,
     ) -> EmbBlock:
         """Vectorized child-embedding rebuild: phi insertion, the psi
@@ -304,8 +304,6 @@ class AcceleratedMiner:
         n_pat = len(pattern)
         vmap = canonical_map(child_raw)
         gid_all, phi_all, psi_all = block.gid, block.phi, block.psi
-        et = np.concatenate(et_rows, axis=0)
-        e_i, t_i = et[:, 0], et[:, 1]
         gids_r = gid_all[e_i].astype(np.int64)
         tok = self.tdb.tokens[gids_r, t_i]
         u1, u2, j = tok[:, 1], tok[:, 2], tok[:, 4]
@@ -344,7 +342,7 @@ class AcceleratedMiner:
                 [gids_r[:, None], new_phi, canon], axis=1))
         if len(variants) == 2:  # interleave bindings per row
             rows = np.stack(variants, axis=1).reshape(
-                2 * len(et), 1 + n_phi + nv_child)
+                2 * len(e_i), 1 + n_phi + nv_child)
         else:
             rows = variants[0]
         _, first = np.unique(rows, axis=0, return_index=True)
@@ -358,42 +356,53 @@ class AcceleratedMiner:
         return EmbBlock(rows[:, 0].astype(np.int32), phi, psi)
 
     # -------------------------------------------------- child expansion
-    def _children_from_merged(
+    def _children_from_groups(
         self,
         pattern: Pattern,
         block: EmbBlock,
-        merged: Dict[int, Tuple[Set[int], List[np.ndarray]]],
+        groups: SliceGroups,
+        item: int,
         min_support: int,
         rs: bool,
         want_embs: Optional[Callable[[Pattern], bool]],
     ) -> List[Child]:
-        by_child: Dict[Pattern, Tuple[Set[int], int, List[np.ndarray]]] = {}
-        for sig, (gset, et_rows) in merged.items():
+        """Item ``item``'s children from the slice's grouped signatures:
+        a child's gids are the union of its signatures' gid slices, its
+        rows those of its first signature."""
+        lo, hi = int(groups.items[item]), int(groups.items[item + 1])
+        by_child: Dict[Pattern, Tuple[Pattern, List[int]]] = {}
+        for k, sig in enumerate(groups.sig[lo:hi].tolist(), lo):
             key = signature_to_extkey(sig)
             if max(key[1].u1, key[1].u2) >= self.nv:
                 continue  # vertex-capacity guard
             child_raw = apply_extension(pattern, key)
             child = canonical_form(child_raw)
             if child in by_child:
-                by_child[child][0].update(gset)
+                by_child[child][1].append(k)
             else:
-                by_child[child] = (set(gset), sig, et_rows)
+                by_child[child] = (child_raw, [k])
         out: List[Child] = []
-        for child, (gids, sig, et_rows) in by_child.items():
+        gid_lo, gid_hi, all_gids = groups.gid_lo, groups.gid_hi, groups.gids
+        for child, (child_raw, ks) in by_child.items():
+            gids = (all_gids[gid_lo[ks[0]]:gid_hi[ks[0]]] if len(ks) == 1
+                    else np.unique(np.concatenate(
+                        [all_gids[gid_lo[k]:gid_hi[k]] for k in ks])))
             if len(gids) < min_support:
                 continue
             if rs and parent(child) != pattern:
                 continue  # reverse-search membership test
+            gset = set(gids.tolist())
             if want_embs is not None and not want_embs(child):
-                out.append((child, gids, self._no_embs))
+                out.append((child, gset, self._no_embs))
                 continue
-            key = signature_to_extkey(sig)
-            child_raw = apply_extension(pattern, key)
+            k = ks[0]
+            rows = slice(groups.row_lo[k], groups.row_hi[k])
             with trace.span("mining.rebuild"):
                 child_embs = self._rebuild_embeddings(
-                    pattern, block, sig, et_rows, child_raw
+                    pattern, block, int(groups.sig[k]), groups.e[rows],
+                    groups.t[rows], child_raw
                 )
-            out.append((child, gids, child_embs))
+            out.append((child, gset, child_embs))
         return out
 
     def expand_children_batch(
@@ -420,11 +429,11 @@ class AcceleratedMiner:
         if not live:
             return out
         modes = [self._phase_mode(p, rs) for _, p, _ in live]
-        merged = self._scan_batch([(p, b) for _, p, b in live], modes)
-        for (i, p, b), m in zip(live, merged):
+        groups = self._scan_batch([(p, b) for _, p, b in live], modes)
+        for item, (i, p, b) in enumerate(live):
             with trace.span("mining.children"):
-                out[i] = self._children_from_merged(
-                    p, b, m, min_support, rs, want_embs
+                out[i] = self._children_from_groups(
+                    p, b, groups, item, min_support, rs, want_embs
                 )
         return out
 

@@ -26,16 +26,18 @@ sort + boundary split, no per-signature python), `candidate_table_device`
 the fixed-size on-device variant used by the distributed step (see
 distributed.py).
 
-``match_signatures_batch`` / ``aggregate_host_batch`` are the wavefront
-forms: rows of *different* patterns share one dispatch, carrying a
-per-row ``pattern_id`` that indexes stacked per-pattern tables on the
-way in and namespaces the signatures on the way out (the 64-bit
-``pattern_id << 32 | sig`` key) - see mining.driver's wavefront
-scheduler.
+``match_signatures_batch`` is the wavefront form: rows of *different*
+patterns share one dispatch, carrying a per-row ``pattern_id`` that
+indexes stacked per-pattern tables on the way in and namespaces the
+signatures on the way out (the 64-bit ``pattern_id << 32 | sig`` key).
+``signature_entries`` keeps a chunk's valid signatures as flat arrays,
+and ``group_slice`` groups a whole wavefront slice's entries by key with
+one stable sort (``SliceGroups``) - see mining.driver's wavefront
+scheduler; ``aggregate_host_batch`` is one chunk's grouping as a dict.
 """
 from __future__ import annotations
 
-from typing import Dict, Sequence, Set, Tuple
+from typing import Dict, NamedTuple, Sequence, Set, Tuple
 
 import numpy as np
 import torch
@@ -101,30 +103,99 @@ def aggregate_host(
     }
 
 
+def signature_entries(sigs: np.ndarray, gids: np.ndarray,
+                      pids: np.ndarray):
+    """A wavefront chunk's valid signatures (``sigs`` [E, T], ``-1`` for
+    none) as four flat arrays in (e, t) order: the 64-bit key
+    ``pids[e] << 32 | sig``, the chunk row ``e``, the token ``t`` and
+    the row's gid."""
+    T = sigs.shape[1]
+    flat = sigs.reshape(-1)
+    idx = np.flatnonzero(flat >= 0)
+    e = idx // T
+    keys = (np.asarray(pids, np.int64)[e] << 32) | flat[idx]
+    return keys, e, idx - e * T, np.asarray(gids)[e]
+
+
+class SliceGroups(NamedTuple):
+    """A wavefront slice's extension signatures grouped by (item,
+    signature) key.  The keys run item by item; within an item, in the
+    order a chunk-by-chunk merge first meets them (by the first chunk
+    holding the signature, then ascending signature).  Key ``k`` has
+    signature ``sig[k]``, its (e, t) rows ``e[row_lo[k]:row_hi[k]]`` /
+    ``t[...]`` in (e, t) order with ``e`` local to the item's embedding
+    block, and its distinct gids ``gids[gid_lo[k]:gid_hi[k]]``
+    ascending; item ``i`` owns keys ``items[i]:items[i + 1]``."""
+
+    sig: np.ndarray
+    row_lo: np.ndarray
+    row_hi: np.ndarray
+    e: np.ndarray
+    t: np.ndarray
+    gid_lo: np.ndarray
+    gid_hi: np.ndarray
+    gids: np.ndarray
+    items: np.ndarray
+
+
+def group_slice(chunks: Sequence[Tuple[np.ndarray, ...]],
+                offs: np.ndarray) -> SliceGroups:
+    """Group the entries of a slice's chunks, in chunk order, each a
+    ``(keys, rows, t, gids)`` of ``signature_entries`` with ``rows``
+    counted from the slice's first row; ``offs`` [n_items] is each
+    item's first row.  One stable sort by key keeps every key's rows in
+    their (e, t) order, and one sort of (key, gid) pairs finds each
+    key's distinct gids."""
+    offs = np.asarray(offs, np.int64)
+    if chunks:
+        keys, rows, t, gids = (np.concatenate(c) for c in zip(*chunks))
+        chunk = np.repeat(np.arange(len(chunks)),
+                          [len(c[0]) for c in chunks])
+    else:
+        keys = np.zeros(0, np.int64)
+        rows = t = gids = chunk = np.zeros(0, np.int64)
+    order = np.argsort(keys, kind="stable")
+    keys = keys[order]
+    new = np.ones(len(keys), bool)
+    new[1:] = keys[1:] != keys[:-1]
+    lo = np.flatnonzero(new)
+    hi = np.append(lo[1:], len(keys))
+    ukeys = keys[lo]
+    pid = ukeys >> 32
+    # one key a group: distinct (group, gid) pairs, grouped and ascending
+    pairs = np.unique(((np.cumsum(new) - 1) << 32) | gids[order])
+    grp = pairs >> 32
+    kidx = np.arange(len(ukeys))
+    korder = np.lexsort((ukeys, chunk[order[lo]], pid))
+    return SliceGroups(
+        sig=(ukeys & 0xFFFFFFFF)[korder],
+        row_lo=lo[korder], row_hi=hi[korder],
+        e=rows[order] - offs[keys >> 32], t=t[order],
+        gid_lo=np.searchsorted(grp, kidx)[korder],
+        gid_hi=np.searchsorted(grp, kidx, side="right")[korder],
+        gids=pairs & 0xFFFFFFFF,
+        items=np.searchsorted(pid[korder], np.arange(len(offs) + 1)),
+    )
+
+
 def aggregate_host_batch(
     sigs: np.ndarray, gids: np.ndarray, pids: np.ndarray
 ) -> Dict[Tuple[int, int], Tuple[Set[int], np.ndarray]]:
-    """Namespaced finalize for wavefront scans: each row carries the
-    pattern id it belongs to (``pids`` [E]), so signatures of different
-    patterns in the same packed batch are disambiguated by composing a
-    64-bit ``pattern_id << 32 | sig`` sort key.  Returns
-    {(pattern_id, sig): (distinct gid set, (e,t) rows)} with ``e``
-    indexing the packed batch rows (the driver maps them back to
-    per-pattern embedding indices)."""
-    E, T = sigs.shape
-    flat = sigs.reshape(-1).astype(np.int64)
-    idx = np.nonzero(flat >= 0)[0]
-    if not len(idx):
-        return {}
-    e_idx = (idx // T).astype(np.int32)
-    t_idx = (idx % T).astype(np.int32)
-    svals = (np.asarray(pids, np.int64)[e_idx] << 32) | flat[idx]
-    g = np.asarray(gids)[e_idx]
-    keys, gid_groups, et_groups = _group_finalize(svals, e_idx, t_idx, g)
-    return {
-        (int(k >> 32), int(k & 0xFFFFFFFF)): (set(gg.tolist()), et)
-        for k, gg, et in zip(keys, gid_groups, et_groups)
-    }
+    """One chunk grouped as a dict, as the reference package's public
+    form has it: {(pattern_id, sig): (distinct gid set, (e, t) rows
+    [n, 2] int32)} in ascending key order, ``e`` indexing the chunk's
+    rows.  The miner itself groups whole slices (``group_slice``)."""
+    keys, e, t, g = signature_entries(sigs, gids, pids)
+    n_items = int(keys.max() >> 32) + 1 if len(keys) else 0
+    gr = group_slice([(keys, e, t, g)], np.zeros(n_items, np.int64))
+    out = {}
+    for pi in range(n_items):
+        for k in range(gr.items[pi], gr.items[pi + 1]):
+            rows = slice(gr.row_lo[k], gr.row_hi[k])
+            out[(pi, int(gr.sig[k]))] = (
+                set(gr.gids[gr.gid_lo[k]:gr.gid_hi[k]].tolist()),
+                np.stack([gr.e[rows], gr.t[rows]], axis=1).astype(np.int32))
+    return out
 
 
 def _unique_fixed(x: torch.Tensor, k: int):

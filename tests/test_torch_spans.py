@@ -16,6 +16,7 @@ from torch.profiler import ProfilerActivity, profile
 
 from repro_torch.core.compile import compile_sequence
 from repro_torch.data.synthetic import random_graph_sequence
+from repro_torch.mining import driver
 from repro_torch.mining.driver import AcceleratedMiner
 from repro_torch.obs import trace
 from repro_torch.serving import batch
@@ -23,7 +24,8 @@ from repro_torch.serving.bank import compile_bank
 from repro_torch.serving.server import PatternServer
 
 MINING_SPANS = ("mining.prepare", "mining.encode", "mining.upload",
-                "mining.aggregate", "mining.children", "mining.rebuild")
+                "mining.aggregate", "mining.group", "mining.children",
+                "mining.rebuild")
 LAYOUTS = ("flat", "trie", "trie_fused")
 
 
@@ -104,6 +106,7 @@ def test_a_mining_job_records_every_span_nested_and_one_upload_a_copy(db):
     assert of["mining.rebuild"] == {"mining.children"}
     assert of["mining.children"] == {"mining.wavefront"}
     assert of["mining.aggregate"] == {"mining.wavefront"}
+    assert of["mining.group"] == {"mining.wavefront"}
     # the constructor is a job's first root: nothing of a job is unspanned
     assert of["mining.prepare"] == {None} and of["mining.mine"] == {None}
     # the chunk uploads sit inside the measured dispatch interval
@@ -112,9 +115,40 @@ def test_a_mining_job_records_every_span_nested_and_one_upload_a_copy(db):
     slices = names["mining.wavefront"]
     assert names["mining.upload"] == 1 + 4 * slices + 5 * n_calls
     assert names["mining.aggregate"] == n_calls
+    assert names["mining.group"] == slices
     assert names["mining.encode"] == slices + n_calls
     assert names["mining.rebuild"] == len(res.patterns)
     assert len(res.patterns) > 0
+
+
+def test_the_grouping_counters_count_the_scans_entries_and_keys(
+        db, monkeypatch):
+    """``mining.sig_rows`` is the number of valid signature entries the
+    plain match_count version returns over a job, ``mining.sig_keys``
+    the number of distinct (pattern, signature) keys of each slice,
+    summed over the slices."""
+    slices = []
+    scan, group = driver.match_signatures_batch, AcceleratedMiner._scan_batch
+
+    def recording_scan(*args):
+        out = scan(*args)
+        slices[-1].append((out.numpy(), args[5].numpy()))  # sigs, pids
+        return out
+
+    def one_slice(self, items, modes):
+        slices.append([])
+        return group(self, items, modes)
+
+    monkeypatch.setattr(driver, "match_signatures_batch", recording_scan)
+    monkeypatch.setattr(AcceleratedMiner, "_scan_batch", one_slice)
+    miner = AcceleratedMiner(db, device="cpu")
+    miner.mine_rs(2, max_len=4)
+    rows = sum(int((s >= 0).sum()) for sl in slices for s, _ in sl)
+    keys = sum(len({(int(p[e]), int(s[e, t])) for s, p in sl
+                    for e, t in zip(*np.nonzero(s >= 0))}) for sl in slices)
+    snap = miner.metrics.snapshot()
+    assert snap["mining.sig_rows"] == rows > 0
+    assert snap["mining.sig_keys"] == keys > len(slices)
 
 
 def _serve(bank, queries, **kw):
