@@ -106,6 +106,9 @@ class ObserveResult:
     evicted: int
     tombstoned: int  # patterns newly masked by this batch
     refreshed: bool  # True when refresh_every triggered a refresh
+    # [arrived, n_patterns] containment rows of the batch over the bank
+    # as it was when the batch joined (masked rows read False)
+    rows: np.ndarray
 
 
 class StreamingBank:
@@ -187,18 +190,20 @@ class StreamingBank:
 
     # ------------------------------------------------------------ wiring
     def _make_server(self) -> PatternServer:
-        if get_layout(self.bank_layout).uses_trie and self.trie is None:
-            self.trie = build_trie(self.bank)
-        return PatternServer(
-            self.bank, bank_layout=self.bank_layout, trie=self.trie,
-            metrics=self.metrics, device=self.device, **self.server_kw,
-        )
+        with trace.span("streaming.server"):
+            if get_layout(self.bank_layout).uses_trie and self.trie is None:
+                self.trie = build_trie(self.bank)
+            return PatternServer(
+                self.bank, bank_layout=self.bank_layout, trie=self.trie,
+                metrics=self.metrics, device=self.device, **self.server_kw,
+            )
 
     def _apply_mask(self) -> None:
         if not self.tombstones:
             return
-        mask = None if self.active.all() else self.active
-        self.server.set_row_mask(mask)
+        with trace.span("streaming.mask"):
+            mask = None if self.active.all() else self.active
+            self.server.set_row_mask(mask)
 
     @classmethod
     def from_db(
@@ -259,10 +264,12 @@ class StreamingBank:
         increment supports, store the row in the ring, and decrement
         the expiring sequences' stored rows - no re-join on eviction.
         Tombstones are re-evaluated once per call, so the mask is fixed
-        while the batch joins."""
+        while the batch joins.  The result carries the batch's rows (the
+        answers), over the bank as it was when the batch joined."""
         batch = list(batch)
         if not batch:
-            return ObserveResult(0, 0, 0, False)
+            return ObserveResult(0, 0, 0, False,
+                                 np.zeros((0, self.bank.n_patterns), bool))
         t0 = time.perf_counter()
         try:
             return self._observe_inner(batch)
@@ -318,7 +325,7 @@ class StreamingBank:
                 and self._batches_since_refresh >= self.refresh_every):
             self.refresh()
             refreshed = True
-        return ObserveResult(len(batch), evicted, n_tomb, refreshed)
+        return ObserveResult(len(batch), evicted, n_tomb, refreshed, rows)
 
     @property
     def delta_seq(self) -> int:
@@ -393,27 +400,28 @@ class StreamingBank:
             return self._refresh_full(seqs)
         if not self._any_change:
             return self.frequent()
-        if self.tombstones:
-            active_map = {
-                self.bank.patterns[i]: int(self.support[i])
-                for i in np.nonzero(self.active)[0]
+        with trace.span("streaming.dirty"):
+            if self.tombstones:
+                active_map = {
+                    self.bank.patterns[i]: int(self.support[i])
+                    for i in np.nonzero(self.active)[0]
+                }
+            else:
+                # every support is exact when nothing is ever masked
+                active_map = {
+                    p: int(self.support[i])
+                    for i, p in enumerate(self.bank.patterns)
+                }
+            # dirtiness only means something for rows whose supports are
+            # being maintained: every row when tombstones are off, active
+            # rows when on (a tombstoned row re-enters via a scan, not via
+            # retention, so its dirty bit is moot)
+            maintained = self.active if self.tombstones else \
+                np.ones_like(self.active)
+            dirty_set = {
+                self.bank.patterns[i]
+                for i in np.nonzero(self.dirty_rows() & maintained)[0]
             }
-        else:
-            # every support is exact when nothing is ever masked
-            active_map = {
-                p: int(self.support[i])
-                for i, p in enumerate(self.bank.patterns)
-            }
-        # dirtiness only means something for rows whose supports are
-        # being maintained: every row when tombstones are off, active
-        # rows when on (a tombstoned row re-enters via a scan, not via
-        # retention, so its dirty bit is moot)
-        maintained = self.active if self.tombstones else \
-            np.ones_like(self.active)
-        dirty_set = {
-            self.bank.patterns[i]
-            for i in np.nonzero(self.dirty_rows() & maintained)[0]
-        }
         with trace.span("streaming.frontier"):
             fr = refresh_frontier(
                 seqs, self.minsup, active=active_map, dirty=dirty_set,
@@ -461,23 +469,14 @@ class StreamingBank:
             return self._refresh_full(seqs, mined=mined)
         if new:
             try:
-                bank2 = extend_bank(self.bank, new)
+                with trace.span("streaming.extend"):
+                    grow = self._extend(new)
             except BankCapacityError:
                 # a new pattern does not fit the compiled key space:
                 # full recompile is the only exact option
                 return self._refresh_full(seqs, mined=mined)
-            grow = bank2.n_patterns - self.bank.n_patterns
-            self.support = np.concatenate(
-                [self.support, np.zeros(grow, np.int64)])
-            self.active = np.concatenate(
-                [self.active, np.zeros(grow, bool)])
-            # the dirtiness index is slot-granular, nothing to grow
-            self._bits = np.pad(self._bits, ((0, 0), (0, grow)))
-            if self.trie is not None:
-                self.trie = extend_trie(self.trie, bank2)
-            self.bank = bank2
             bank_grew = True
-            known = {p: i for i, p in enumerate(bank2.patterns)}
+            known = {p: i for i, p in enumerate(self.bank.patterns)}
             self.stats["added"] += grow
         # rows whose maintained bitmaps are stale: new rows (never
         # counted) and recovered tombstones (masked while inactive)
@@ -486,19 +485,20 @@ class StreamingBank:
             mined_rows[known[p]] = True
         recount = np.nonzero(mined_rows & ~self.active)[0]
         if len(recount):
-            # recovered/new rows backfill their window bitmaps from the
-            # frontier miner's exact containing-gid sets - no extra
-            # containment join.  gid g indexes ``seqs`` (oldest-first),
-            # i.e. position g of the ring-slot order; never-written
-            # slots hold all-zero bits already.
-            slots = np.asarray(self._ring_slots(), np.int64)
-            cols = np.zeros((len(seqs), len(recount)), bool)
-            for j, r in enumerate(recount):
-                gset = gids[self.bank.patterns[r]]
-                cols[sorted(gset), j] = True
-            self._bits[slots[:, None], recount[None, :]] = cols
-            self.support[recount] = cols.sum(0)
-            self.stats["recovered"] += len(recount) - n_new
+            with trace.span("streaming.recount"):
+                # recovered/new rows backfill their window bitmaps from the
+                # frontier miner's exact containing-gid sets - no extra
+                # containment join.  gid g indexes ``seqs`` (oldest-first),
+                # i.e. position g of the ring-slot order; never-written
+                # slots hold all-zero bits already.
+                slots = np.asarray(self._ring_slots(), np.int64)
+                cols = np.zeros((len(seqs), len(recount)), bool)
+                for j, r in enumerate(recount):
+                    gset = gids[self.bank.patterns[r]]
+                    cols[sorted(gset), j] = True
+                self._bits[slots[:, None], recount[None, :]] = cols
+                self.support[recount] = cols.sum(0)
+                self.stats["recovered"] += len(recount) - n_new
         # maintained supports of still-active mined rows and recounted
         # supports of recovered/new rows must both equal the mined
         # (re-mine-exact) supports - the maintenance invariant
@@ -518,6 +518,23 @@ class StreamingBank:
         self._emit("extend", dict(new), self.active.copy(),
                    self.support.copy())
         return self.frequent()
+
+    def _extend(self, new: Dict[Pattern, int]) -> int:
+        """Append ``new`` to the bank (and the trie) and grow the per-row
+        arrays with it; returns the rows added.  ``extend_bank`` raises
+        ``BankCapacityError`` before anything changes."""
+        bank2 = extend_bank(self.bank, new)
+        grow = bank2.n_patterns - self.bank.n_patterns
+        self.support = np.concatenate(
+            [self.support, np.zeros(grow, np.int64)])
+        self.active = np.concatenate(
+            [self.active, np.zeros(grow, bool)])
+        # the dirtiness index is slot-granular, nothing to grow
+        self._bits = np.pad(self._bits, ((0, 0), (0, grow)))
+        if self.trie is not None:
+            self.trie = extend_trie(self.trie, bank2)
+        self.bank = bank2
+        return grow
 
     def _refresh_full(
         self, seqs: List[TRSeq], mined: Optional[Dict[Pattern, int]] = None

@@ -2,8 +2,9 @@
 job and a batch record, how they nest, what their counts equal (the
 miner's copies, the predicate calls, the fused walks), that results,
 counters and dispatch counts are bit-identical with tracing off, sampled
-and full, and that the profiler-range option mirrors every recorded span
-as a same-name profiler range, and only with it on."""
+and full, which spans a stream's observe and refresh record, and that
+the profiler-range option mirrors every recorded span as a same-name
+profiler range, and only with it on."""
 import collections
 import json
 import os
@@ -15,6 +16,7 @@ import pytest
 from torch.profiler import ProfilerActivity, profile
 
 from repro_torch.core.compile import compile_sequence
+from repro_torch.core.graphseq import NO_VERTEX, TR, TRType
 from repro_torch.data.synthetic import random_graph_sequence
 from repro_torch.mining import driver
 from repro_torch.mining.driver import AcceleratedMiner
@@ -22,6 +24,7 @@ from repro_torch.obs import trace
 from repro_torch.serving import batch
 from repro_torch.serving.bank import compile_bank
 from repro_torch.serving.server import PatternServer
+from repro_torch.serving.streaming import StreamingBank
 
 MINING_SPANS = ("mining.prepare", "mining.encode", "mining.upload",
                 "mining.aggregate", "mining.group", "mining.children",
@@ -387,3 +390,39 @@ def test_a_traced_batch_records_every_serving_span_under_its_parent(
         == stats["device_batches"] > 1
     assert sum(n for (name, _), n in pairs.items()
                if name == "serving.step") == calls
+
+
+# the stream's spans inside an observe and an incremental refresh, with
+# their parents
+STREAM_SPANS = {
+    ("streaming.mask", "streaming.observe"),
+    ("streaming.dirty", "streaming.refresh"),
+    ("streaming.extend", "streaming.reconcile"),
+    ("streaming.recount", "streaming.reconcile"),
+    ("streaming.server", "streaming.reconcile"),
+    ("streaming.mask", "streaming.reconcile"),
+}
+
+
+def test_a_stream_records_its_window_and_refresh_spans_under_their_parents():
+    """A window of 10 tombstoned whole by sequences that contain no
+    pattern (their labels lie outside the bank's), then turned over by
+    10 new sequences: the refresh recovers tombstones and grows the bank
+    (``extend_bank``, the server rebuilt).  Each new span is recorded
+    under its parent, and the map is the one the stream gives untraced."""
+    def stream():
+        sb = StreamingBank.from_db(_db(3, 10), minsup=3, window=10,
+                                   max_len=4, device="cpu")
+        sb.observe([((TR(TRType.VI, 0, NO_VERTEX, 90 + i),),)
+                    for i in range(8)])
+        sb.observe(_db(5, 10))
+        return sb.refresh(), dict(sb.stats)
+
+    want, _ = _run("off", stream)
+    (got, stats), ev = _run("sampled", stream)
+    assert (got, stats) == want
+    assert stats["recovered"] > 0 and stats["added"] > 0
+    pairs = {(e["name"], p) for e, p in zip(ev, _parents(ev))
+             if e["name"].startswith("streaming.")}
+    assert STREAM_SPANS <= pairs
+    assert ("streaming.frontier", "streaming.refresh") in pairs

@@ -239,3 +239,25 @@ def test_sharded_window_matches_jax_and_single_host(layout, H):
     for x, y in zip(ref.query(q, k=5), sh.query(q, host=1, k=5)):
         np.testing.assert_array_equal(x.contained, y.contained)
         assert x.topk == y.topk
+
+
+def test_observe_returns_the_rows_it_wrote_to_the_ring():
+    """``ObserveResult.rows`` are the rows each batch wrote to the ring
+    (no refresh in between rewrites them), over the bank as it was when
+    the batch joined: rows masked by a tombstone read False, and an
+    empty batch gives no rows."""
+    sb = StreamingBank.from_db(db_from_reference(random_db(5, n_seq=W)),
+                               minsup=MINSUP, window=W, max_len=MAX_LEN,
+                               device="cpu")
+    masked = 0
+    for jbatch in (random_db(300, n_seq=3), _killers(W - MINSUP),
+                   random_db(301, n_seq=4)):
+        slots = [(sb._head + j) % W for j in range(len(jbatch))]
+        active = sb.active.copy()
+        res = sb.observe(db_from_reference(jbatch))
+        assert res.rows.shape == (len(jbatch), sb.n_patterns)
+        np.testing.assert_array_equal(res.rows, sb._bits[slots])
+        assert not res.rows[:, ~active].any()
+        masked += int((~active).sum())
+    assert masked > 0 and sb.support.any()
+    assert sb.observe([]).rows.shape == (0, sb.n_patterns)
