@@ -48,8 +48,10 @@ padding), ``mining.upload`` (one per host-to-device copy), the measured
 ``mining.dispatch`` / ``mining.device`` intervals of each chunk,
 ``mining.aggregate`` (each chunk's signatures read back and kept as flat
 arrays), ``mining.group`` (the slice's signatures grouped, once a
-slice), and per item ``mining.children``, holding a ``mining.rebuild``
-per rebuilt child.
+slice), ``mining.bound`` (the keys whose children cannot reach the
+minimum support dropped, once a slice: ``engine.bound_slice``), and per
+item ``mining.children`` (the surviving keys canonicalised into
+children), holding a ``mining.rebuild`` per rebuilt child.
 
 The work pool holds each pattern's embeddings as an ``EmbBlock`` (the
 padded int32 ``gid`` / ``phi`` / ``psi`` rows the scans read): a child's
@@ -60,8 +62,9 @@ on the way.  ``Emb`` lists are taken at the public entries
 Counters: ``mining.emb_rows`` (rows rebuilt into blocks),
 ``mining.emb_decoded`` (rows decoded back into ``Emb`` tuples: only a
 checkpoint's save does that), ``mining.sig_rows`` (valid signature
-entries grouped) and ``mining.sig_keys`` (distinct (pattern, signature)
-keys they group into).
+entries grouped), ``mining.sig_keys`` (distinct (pattern, signature)
+keys they group into) and ``mining.sig_keys_bounded`` (the keys of
+those that ``mining.bound`` drops).
 """
 from __future__ import annotations
 
@@ -97,6 +100,7 @@ from .engine import (
     MODE_TAIL,
     MODE_VERTEX_PHASE,
     SliceGroups,
+    bound_slice,
     group_slice,
     match_signatures_batch,
     signature_entries,
@@ -168,6 +172,8 @@ class AcceleratedMiner:
             f"{metrics_ns}.emb_decoded")
         self._c_sig_rows = self.metrics.counter(f"{metrics_ns}.sig_rows")
         self._c_sig_keys = self.metrics.counter(f"{metrics_ns}.sig_keys")
+        self._c_sig_keys_bounded = self.metrics.counter(
+            f"{metrics_ns}.sig_keys_bounded")
         # what a child pruned by ``want_embs`` comes back with
         self._no_embs = EmbBlock.from_embs([], self.ni, self.nv)
 
@@ -361,17 +367,19 @@ class AcceleratedMiner:
         pattern: Pattern,
         block: EmbBlock,
         groups: SliceGroups,
+        keep: np.ndarray,
         item: int,
         min_support: int,
         rs: bool,
         want_embs: Optional[Callable[[Pattern], bool]],
     ) -> List[Child]:
-        """Item ``item``'s children from the slice's grouped signatures:
-        a child's gids are the union of its signatures' gid slices, its
-        rows those of its first signature."""
+        """Item ``item``'s children from the slice's grouped signatures
+        that ``keep`` keeps: a child's gids are the union of its
+        signatures' gid slices, its rows those of its first signature."""
         lo, hi = int(groups.items[item]), int(groups.items[item + 1])
+        ks = np.flatnonzero(keep[lo:hi]) + lo
         by_child: Dict[Pattern, Tuple[Pattern, List[int]]] = {}
-        for k, sig in enumerate(groups.sig[lo:hi].tolist(), lo):
+        for k, sig in zip(ks.tolist(), groups.sig[ks].tolist()):
             key = signature_to_extkey(sig)
             if max(key[1].u1, key[1].u2) >= self.nv:
                 continue  # vertex-capacity guard
@@ -430,10 +438,15 @@ class AcceleratedMiner:
             return out
         modes = [self._phase_mode(p, rs) for _, p, _ in live]
         groups = self._scan_batch([(p, b) for _, p, b in live], modes)
+        with trace.span("mining.bound"):
+            keep = bound_slice(
+                groups, [len(pattern_vertices(p)) for _, p, _ in live],
+                min_support)
+            self._c_sig_keys_bounded.inc(len(keep) - int(keep.sum()))
         for item, (i, p, b) in enumerate(live):
             with trace.span("mining.children"):
                 out[i] = self._children_from_groups(
-                    p, b, groups, item, min_support, rs, want_embs
+                    p, b, groups, keep, item, min_support, rs, want_embs
                 )
         return out
 

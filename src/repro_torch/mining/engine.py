@@ -33,7 +33,10 @@ signatures on the way out (the 64-bit ``pattern_id << 32 | sig`` key).
 ``signature_entries`` keeps a chunk's valid signatures as flat arrays,
 and ``group_slice`` groups a whole wavefront slice's entries by key with
 one stable sort (``SliceGroups``) - see mining.driver's wavefront
-scheduler; ``aggregate_host_batch`` is one chunk's grouping as a dict.
+scheduler; ``bound_slice`` bounds each key's children's support with
+one sort of the keys, so the keys that cannot reach the minimum support
+skip mining.driver's per-key canonicalisation; ``aggregate_host_batch``
+is one chunk's grouping as a dict.
 """
 from __future__ import annotations
 
@@ -54,7 +57,8 @@ from ..kernels.match_count.ref import (  # noqa: F401
     match_signatures_batch_ref,
     match_signatures_ref,
 )
-from .encoding import INVALID_SIG
+from .encoding import (INVALID_SIG, _LAB_BITS, _SL_BITS, _TY_BITS,
+                       unpack_signature)
 
 
 def _group_finalize(svals, e_idx, t_idx, g):
@@ -176,6 +180,36 @@ def group_slice(chunks: Sequence[Tuple[np.ndarray, ...]],
         gids=pairs & 0xFFFFFFFF,
         items=np.searchsorted(pid[korder], np.arange(len(offs) + 1)),
     )
+
+
+def bound_slice(groups: SliceGroups, n_vertices: np.ndarray,
+                min_support: int) -> np.ndarray:
+    """A keep mask over a slice's keys: ``False`` where no child the key
+    can yield reaches ``min_support``.  ``n_vertices`` [n_items] is each
+    item's pattern vertex count.
+
+    Every key of an item that yields a given canonical child agrees on
+    the slot kind (the child's itemset count), the ``in`` index (its
+    itemset sizes), the TR's type and label (its (type, label)
+    multiset) and the number of new vertices (its vertex count), since
+    a signature never repeats a TR of its ``in`` itemset.  A child's
+    gids are the union of its keys' gids, so its support is at most the
+    sum of the gid counts of the keys in its bucket of these fields: one
+    sort of the slice's keys, and no sort of their gids."""
+    item = np.repeat(np.arange(len(groups.items) - 1),
+                     np.diff(groups.items))
+    n = np.asarray(n_vertices, np.int64)[item]
+    # unpacked from a copy: the shifts work in place on an array
+    kind, idx, ty, pu1, pu2, label = unpack_signature(
+        groups.sig.astype(np.int64))
+    # ty > 2: an edge TR, whose pu2 may be a second new vertex
+    new = (pu1 >= n).astype(np.int64) + ((ty > 2) & (pu2 >= n))
+    idx = np.where(kind == 0, idx, 0)  # a gap's index is not kept
+    code = (item << 1 | kind) << _SL_BITS | idx
+    code = ((code << _TY_BITS | ty) << 2 | new) << _LAB_BITS | (label + 1)
+    _, bucket = np.unique(code, return_inverse=True)
+    bound = np.bincount(bucket, weights=groups.gid_hi - groups.gid_lo)
+    return bound[bucket] >= min_support
 
 
 def aggregate_host_batch(

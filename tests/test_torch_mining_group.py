@@ -4,7 +4,10 @@ aggregate and dict merge it replaced: per item the same signatures in
 the same order, the same gid sets and the same (e, t) rows in the same
 order; the one-chunk dict form against the JAX package's; and whole
 expansions and jobs of a miner on that frozen path against the miner
-as it is, children, gid sets, blocks and order."""
+as it is, children, gid sets, blocks and order.  The support bound on a
+slice's keys (``engine.bound_slice``) against a copy of the child loop
+that canonicalises every key: the same children, gid sets, blocks and
+order, and every dropped key a child below the minimum support."""
 import time
 from typing import Dict, List, Set, Tuple
 
@@ -15,14 +18,17 @@ from repro.mining.engine import aggregate_host_batch as j_aggregate_host_batch
 
 from repro_torch.core.canonical import canonical_form
 from repro_torch.core.enumerate_host import apply_extension
+from repro_torch.core.graphseq import TRType
 from repro_torch.core.reverse_search import parent
 from repro_torch.data.synthetic import Table3Params, generate_table3_db
 from repro_torch.mining import driver
 from repro_torch.mining.driver import AcceleratedMiner
-from repro_torch.mining.encoding import (PAD_PHI, PAD_PSI, EmbBlock,
-                                         encode_pattern_trs,
+from repro_torch.mining.encoding import (PAD_PHI, PAD_PSI, SENT_V,
+                                         EmbBlock, encode_pattern_trs,
+                                         pack_signature,
                                          signature_to_extkey)
-from repro_torch.mining.engine import (aggregate_host_batch, group_slice,
+from repro_torch.mining.engine import (SliceGroups, aggregate_host_batch,
+                                       bound_slice, group_slice,
                                        signature_entries)
 
 
@@ -333,3 +339,230 @@ def test_jobs_equal_the_frozen_merge_path_in_order(t3_db, rs, sigma):
         (want.n_enumerated, want.n_extension_scans)
     assert new.n_device_calls == old.n_device_calls
     assert len(got.patterns) > 10
+
+
+# ------------------------------------------- the support bound on keys
+class UnboundedMiner(AcceleratedMiner):
+    """The miner with its child expansion as it was before the support
+    bound: every key of the slice canonicalised (the scan, the grouping
+    and the embedding rebuild are shared)."""
+
+    def _children_from_groups(self, pattern, block, groups, item,
+                              min_support, rs, want_embs):
+        lo, hi = int(groups.items[item]), int(groups.items[item + 1])
+        by_child = {}
+        for k, sig in enumerate(groups.sig[lo:hi].tolist(), lo):
+            key = signature_to_extkey(sig)
+            if max(key[1].u1, key[1].u2) >= self.nv:
+                continue
+            child_raw = apply_extension(pattern, key)
+            child = canonical_form(child_raw)
+            if child in by_child:
+                by_child[child][1].append(k)
+            else:
+                by_child[child] = (child_raw, [k])
+        out = []
+        gid_lo, gid_hi, all_gids = groups.gid_lo, groups.gid_hi, groups.gids
+        for child, (child_raw, ks) in by_child.items():
+            gids = (all_gids[gid_lo[ks[0]]:gid_hi[ks[0]]] if len(ks) == 1
+                    else np.unique(np.concatenate(
+                        [all_gids[gid_lo[k]:gid_hi[k]] for k in ks])))
+            if len(gids) < min_support:
+                continue
+            if rs and parent(child) != pattern:
+                continue
+            gset = set(gids.tolist())
+            if want_embs is not None and not want_embs(child):
+                out.append((child, gset, self._no_embs))
+                continue
+            k = ks[0]
+            rows = slice(groups.row_lo[k], groups.row_hi[k])
+            out.append((child, gset, self._rebuild_embeddings(
+                pattern, block, int(groups.sig[k]), groups.e[rows],
+                groups.t[rows], child_raw)))
+        return out
+
+    def expand_children_batch(self, items, min_support, *, rs=True,
+                              want_embs=None):
+        out = [[] for _ in items]
+        live = [(i, p, self._as_block(e)) for i, (p, e) in enumerate(items)
+                if len(p) < self.ni]
+        if not live:
+            return out
+        modes = [self._phase_mode(p, rs) for _, p, _ in live]
+        groups = self._scan_batch([(p, b) for _, p, b in live], modes)
+        for item, (i, p, b) in enumerate(live):
+            out[i] = self._children_from_groups(p, b, groups, item,
+                                                min_support, rs, want_embs)
+        return out
+
+
+def _slice_of(keys, n_items):
+    """A ``SliceGroups`` of ``keys``, each ``(item, signature, gids)``,
+    items in order; the rows are not read by the bound."""
+    sizes = [len(g) for _, _, g in keys]
+    hi = np.cumsum(sizes)
+    zero = np.zeros(len(keys), np.int64)
+    return SliceGroups(
+        sig=np.asarray([s for _, s, _ in keys], np.int64),
+        row_lo=zero, row_hi=zero, e=zero, t=zero,
+        gid_lo=hi - sizes, gid_hi=hi,
+        gids=np.concatenate([np.asarray(g, np.int64) for _, _, g in keys]),
+        items=np.searchsorted([i for i, _, _ in keys], np.arange(n_items + 1)))
+
+
+VI, EI = int(TRType.VI), int(TRType.EI)
+IN, GAP = 0, 1
+BOUND_CASES = {
+    # n_vertices, keys (item, (kind, idx, type, pu1, pu2, label), gids),
+    # the keep mask at sigma 4
+    "gap_index_not_kept": ([2], [
+        (0, (GAP, 0, VI, 2, SENT_V, 1), [0, 1]),
+        (0, (GAP, 2, VI, 2, SENT_V, 1), [2, 3])], [True, True]),
+    "in_index_kept": ([2], [
+        (0, (IN, 0, VI, 1, SENT_V, 1), [0, 1]),
+        (0, (IN, 1, VI, 1, SENT_V, 1), [2, 3])], [False, False]),
+    "one_or_two_new_vertices": ([2], [
+        (0, (GAP, 1, EI, 0, 2, 3), [0, 1, 2]),
+        (0, (GAP, 1, EI, 2, 3, 3), [3, 4, 5])], [False, False]),
+    "mapped_endpoints_pooled": ([3], [
+        (0, (GAP, 1, EI, 0, 1, 3), [0, 1]),
+        (0, (GAP, 1, EI, 1, 2, 3), [1, 2]),
+        (0, (GAP, 0, EI, 0, 3, 3), [3])], [True, True, False]),
+    "fresh_vertex_or_mapped": ([2], [
+        (0, (GAP, 1, VI, 0, SENT_V, 1), [0, 1]),
+        (0, (GAP, 1, VI, 2, SENT_V, 1), [2, 3])], [False, False]),
+    "type_and_label_kept": ([2], [
+        (0, (GAP, 1, VI, 2, SENT_V, 1), [0, 1]),
+        (0, (GAP, 1, VI, 2, SENT_V, 2), [2, 3]),
+        (0, (GAP, 1, VI + 1, 2, SENT_V, 1), [4, 5])], [False] * 3),
+    "items_kept_apart": ([2, 2], [
+        (0, (GAP, 1, VI, 2, SENT_V, 1), [0, 1]),
+        (1, (GAP, 1, VI, 2, SENT_V, 1), [2, 3]),
+        (1, (GAP, 0, VI, 2, SENT_V, 1), [4, 5])], [False, True, True]),
+    "a_key_alone": ([1], [
+        (0, (IN, 0, VI, 0, SENT_V, 2), [0, 1, 2, 3]),
+        (0, (IN, 0, VI, 0, SENT_V, 3), [0, 1, 2])], [True, False]),
+}
+
+
+@pytest.mark.parametrize("case", sorted(BOUND_CASES))
+def test_bound_slice_buckets_by_the_fields_a_child_fixes(case):
+    """Keys are pooled across gap indices and across which pattern
+    vertices an edge's old endpoints are, and kept apart by item, slot
+    kind, ``in`` index, type, label and the number of new vertices; a
+    bucket is kept when its keys' gid counts add up to sigma, a gid
+    that two keys share counted twice."""
+    n_vertices, keys, want = BOUND_CASES[case]
+    groups = _slice_of([(i, pack_signature(*f), g) for i, f, g in keys],
+                       len(n_vertices))
+    got = bound_slice(groups, n_vertices, 4)
+    assert got.tolist() == want
+
+
+def _waves(miner, sigma, rs, levels):
+    """Each level's slice, from the root: its items and the grouping of
+    their signatures."""
+    wave = [((), EmbBlock.root(len(miner.db), miner.ni, miner.nv))]
+    for _ in range(levels):
+        modes = [miner._phase_mode(p, rs) for p, _ in wave]
+        yield wave, miner._scan_batch(wave, modes)
+        kids = miner.expand_children_batch(wave, sigma, rs=rs)
+        wave = [(c, b) for ks in kids for c, _, b in ks]
+        if not wave:
+            return
+
+
+@pytest.mark.parametrize("rs,sigma", [(True, 2), (True, 4), (True, 10),
+                                      (False, 6), (False, 10)])
+def test_bounded_expansions_equal_the_unbounded_loop(t3_db, rs, sigma):
+    """Batched expansions level by level, with chunks small enough that
+    items span them, give every key's loop's children, gid sets and
+    blocks, in its order; so does a baseline expansion that prunes some
+    children's rebuilds."""
+    kw = dict(e_batch=64, device="cpu")
+    new, old = AcceleratedMiner(t3_db, **kw), UnboundedMiner(t3_db, **kw)
+    wave = [((), EmbBlock.root(len(t3_db), new.ni, new.nv))]
+    for _ in range(3):
+        got = new.expand_children_batch(wave, sigma, rs=rs)
+        want = old.expand_children_batch(wave, sigma, rs=rs)
+        for g, w in zip(got, want):
+            _same_children(g, w)
+        wave = [(c, b) for kids in got for c, _, b in kids][:40]
+        assert wave
+    seen = {c for c, _ in wave[::2]}
+    prune = lambda child: child not in seen  # noqa: E731
+    got = new.expand_children_batch(wave, sigma, rs=rs, want_embs=prune)
+    want = old.expand_children_batch(wave, sigma, rs=rs, want_embs=prune)
+    for g, w in zip(got, want):
+        _same_children(g, w)
+
+
+@pytest.mark.parametrize("rs,sigma", [(True, 3), (True, 8), (False, 10),
+                                      (False, 12)])
+def test_bounded_jobs_equal_the_unbounded_loop_in_order(t3_db, rs, sigma):
+    """A whole job gives the unbounded loop's map in the same insertion
+    order, with the same counts and device calls."""
+    kw = dict(e_batch=128, device="cpu")
+    new, old = AcceleratedMiner(t3_db, **kw), UnboundedMiner(t3_db, **kw)
+    mine = "mine_rs" if rs else "mine_gtrace"
+    got = getattr(new, mine)(sigma, max_len=4)
+    want = getattr(old, mine)(sigma, max_len=4)
+    assert list(got.patterns.items()) == list(want.patterns.items())
+    assert (got.n_enumerated, got.n_extension_scans) == \
+        (want.n_enumerated, want.n_extension_scans)
+    assert new.n_device_calls == old.n_device_calls
+    assert len(got.patterns) > 10
+
+
+@pytest.mark.parametrize("rs,sigma", [(True, 3), (False, 6)])
+def test_the_bound_drops_only_keys_of_infrequent_children(t3_db, rs, sigma):
+    """Over three levels of slices: every key the bound drops yields a
+    canonical child whose gids, over all of its item's keys, are fewer
+    than sigma; and no signature repeats a TR of its ``in`` itemset (so
+    a key's child has one TR more than its pattern)."""
+    miner = AcceleratedMiner(t3_db, e_batch=64, device="cpu")
+    n_dropped = n_keys = 0
+    for wave, groups in _waves(miner, sigma, rs, 3):
+        keep = bound_slice(
+            groups, [len(driver.pattern_vertices(p)) for p, _ in wave],
+            sigma)
+        for item, (pattern, _) in enumerate(wave):
+            lo, hi = int(groups.items[item]), int(groups.items[item + 1])
+            gids_of: Dict = {}
+            child_of = {}
+            for k in range(lo, hi):
+                (kind, idx), tr = signature_to_extkey(int(groups.sig[k]))
+                if kind == "in":
+                    assert tr not in pattern[idx], (pattern, kind, idx, tr)
+                child = canonical_form(apply_extension(
+                    pattern, ((kind, idx), tr)))
+                child_of[k] = child
+                gids_of.setdefault(child, set()).update(
+                    groups.gids[groups.gid_lo[k]:groups.gid_hi[k]].tolist())
+            for k in range(lo, hi):
+                if not keep[k]:
+                    assert len(gids_of[child_of[k]]) < sigma
+            n_dropped += int((~keep[lo:hi]).sum())
+            n_keys += hi - lo
+    assert 0 < n_dropped < n_keys
+
+
+def test_the_bound_counter_counts_the_dropped_keys(t3_db, monkeypatch):
+    """``mining.sig_keys_bounded`` is the number of keys the bound drops
+    over a job: more than none and fewer than ``mining.sig_keys``."""
+    dropped = []
+    bound = driver.bound_slice
+
+    def recording_bound(*args):
+        keep = bound(*args)
+        dropped.append(int((~keep).sum()))
+        return keep
+
+    monkeypatch.setattr(driver, "bound_slice", recording_bound)
+    miner = AcceleratedMiner(t3_db, device="cpu")
+    res = miner.mine_rs(6, max_len=4)
+    snap = miner.metrics.snapshot()
+    assert len(res.patterns) > 10
+    assert snap["mining.sig_keys_bounded"] == sum(dropped)
+    assert 0 < snap["mining.sig_keys_bounded"] < snap["mining.sig_keys"]

@@ -27,8 +27,8 @@ from repro_torch.serving.server import PatternServer
 from repro_torch.serving.streaming import StreamingBank
 
 MINING_SPANS = ("mining.prepare", "mining.encode", "mining.upload",
-                "mining.aggregate", "mining.group", "mining.children",
-                "mining.rebuild")
+                "mining.aggregate", "mining.group", "mining.bound",
+                "mining.children", "mining.rebuild")
 LAYOUTS = ("flat", "trie", "trie_fused")
 
 
@@ -110,6 +110,7 @@ def test_a_mining_job_records_every_span_nested_and_one_upload_a_copy(db):
     assert of["mining.children"] == {"mining.wavefront"}
     assert of["mining.aggregate"] == {"mining.wavefront"}
     assert of["mining.group"] == {"mining.wavefront"}
+    assert of["mining.bound"] == {"mining.wavefront"}
     # the constructor is a job's first root: nothing of a job is unspanned
     assert of["mining.prepare"] == {None} and of["mining.mine"] == {None}
     # the chunk uploads sit inside the measured dispatch interval
@@ -118,7 +119,7 @@ def test_a_mining_job_records_every_span_nested_and_one_upload_a_copy(db):
     slices = names["mining.wavefront"]
     assert names["mining.upload"] == 1 + 4 * slices + 5 * n_calls
     assert names["mining.aggregate"] == n_calls
-    assert names["mining.group"] == slices
+    assert names["mining.group"] == names["mining.bound"] == slices
     assert names["mining.encode"] == slices + n_calls
     assert names["mining.rebuild"] == len(res.patterns)
     assert len(res.patterns) > 0
