@@ -35,7 +35,9 @@ answers.  This module is the query plane over such a split:
   Flush triggers: queue reached ``flush_batch`` (reason ``batch``),
   head-of-queue older than ``max_wait`` (reason ``deadline``, checked
   at every submit/poll against the injectable ``clock``), or a
-  ``collect`` needing unresolved rows (reason ``force``).  ``collect``
+  ``collect`` needing unresolved rows (reason ``force``); a client
+  that leaves batching to the first two collects a ticket once its
+  ``DrainTicket.queued`` reads 0.  ``collect``
   fences in admission order (``finalize_rows`` per shard), fills L2
   then L1 exactly like the synchronous path, and returns per-host
   results - bit-equal to ``route`` and the single-host server.
@@ -164,6 +166,7 @@ class _PendingJoin:
     enqueued: float                       # admission clock reading
     row: Optional[np.ndarray] = None
     exact: bool = True
+    launched: bool = False                # set by the flush carrying it
 
 
 @dataclasses.dataclass
@@ -215,6 +218,18 @@ class DrainTicket:
         return sum(
             1 for v in self.rows.values()
             if isinstance(v, _PendingJoin) and v.row is None
+        )
+
+    @property
+    def queued(self) -> int:
+        """Referenced joins admitted but not yet launched by a flush
+        (0 = collect fences only, it forces no flush).  Reading it
+        flushes nothing: a client that collects a ticket only once this
+        is 0 leaves every batch to the ``flush_batch`` / ``max_wait``
+        triggers."""
+        return sum(
+            1 for v in self.rows.values()
+            if isinstance(v, _PendingJoin) and not v.launched
         )
 
 
@@ -809,7 +824,11 @@ class ClusterRouter:
         t_launch = self.clock()
         for e in batch:
             self._h_queue_wait.observe(t_launch - e.enqueued)
-        with trace.span("cluster.flush", reason=reason, n=len(seqs)):
+            e.launched = True
+        # a root where no trace is open: a deadline flush fired by
+        # ``poll`` is recorded like one fired inside ``submit``
+        with trace.root_or_span("cluster.flush", reason=reason,
+                                n=len(seqs)):
             handles, down = [], []
             if live:
                 shared = _encodings(seqs, live)

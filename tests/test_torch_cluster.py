@@ -1,5 +1,7 @@
 """The simulated serving cluster, port vs the JAX package, on the CPU:
-routed and async (continuous-batching) rows, cache counters and stats;
+routed and async (continuous-batching) rows, cache counters and stats,
+the async ones at one host and at three, against the single-host server
+too; ``DrainTicket.queued`` read before and after each flush;
 a seeded chaos schedule (delays, transient errors, one host dark) with
 the same answers and counters as the JAX package's; read replicas'
 delta apply and crash replay; and the launcher's streaming and cluster
@@ -127,11 +129,12 @@ def test_routed_and_async_match_jax(banks, layout):
     assert tac.router.depth() == 0
 
 
-def test_async_pipeline_matches_jax(banks, two_tr_banks):
+@pytest.mark.parametrize("H", [1, 3])
+def test_async_pipeline_matches_jax(banks, two_tr_banks, H):
     """The async pipeline under a fake clock: answers, every router
     counter (batch, deadline and forced flushes, in-flight hits) and the
-    summed shard counters equal the JAX package's."""
-    H = 3
+    summed shard counters equal the JAX package's, and the answers the
+    single-host server's rows and top-k bit for bit."""
     clocks = [[0.0], [0.0]]
     jbank, tbank = two_tr_banks
     tac = ServingCluster(tbank, H, device="cpu", flush_batch=3,
@@ -140,12 +143,49 @@ def test_async_pipeline_matches_jax(banks, two_tr_banks):
                           clock=lambda: clocks[1][0])
     got = _async_drains(tac, clocks[0], banks["tq"], H)
     want = _async_drains(jac, clocks[1], banks["jq"], H)
-    for g, w in zip(got, want):
+    server = PatternServer(tbank, device="cpu")
+    for d, g, w in zip(DRAINS, got, want):
         _same_results({0: g}, {0: w})
+        for r, s in zip(g, server.query([banks["tq"][q] for q in d])):
+            assert r.exact and r.topk == s.topk
+            np.testing.assert_array_equal(r.contained, s.contained)
     st = dict(tac.router.stats)
     assert st == dict(jac.router.stats)
     assert st["flush_batch"] and st["flush_deadline"] and st["inflight_hits"]
     assert tac.stats() == jac.stats()
+
+
+@pytest.mark.parametrize("layout", LAYOUTS)
+@pytest.mark.parametrize("trigger", ["batch", "deadline"])
+def test_one_host_pipeline_reads_queued(banks, layout, trigger):
+    """One host driven by submit -> poll -> collect under a fake clock:
+    each ticket reads ``queued`` until a ``batch`` or ``deadline`` flush
+    launches its joins and 0 after, reading it flushes nothing, and
+    collect forces no flush."""
+    tq = banks["tq"]
+    half = len(tq) // 2
+    clock = [0.0]
+    cl = ServingCluster(banks["tbank"], 1, bank_layout=layout, device="cpu",
+                        flush_batch=len(tq) if trigger == "batch" else None,
+                        max_wait=0.5, clock=lambda: clock[0])
+    tickets = [cl.submit({0: tq[:half]})]
+    clock[0] += 0.25
+    cl.poll()
+    assert tickets[0].queued == tickets[0].queued == half
+    assert not any(cl.router.stats["flush_" + r]
+                   for r in ("batch", "deadline", "force"))
+    # the batch trigger: the queue reaches flush_batch here
+    tickets.append(cl.submit({0: tq[half:]}))
+    if trigger == "deadline":
+        assert [t.queued for t in tickets] == [half, len(tq) - half]
+        clock[0] += 0.25
+        cl.poll()
+    st = dict(cl.router.stats)
+    assert st["flush_" + trigger] == 1 and st["flush_force"] == 0
+    assert [t.queued for t in tickets] == [0, 0]
+    got = [r for t in tickets for r in cl.collect(t)[0]]
+    assert len(got) == len(tq) and all(r.exact for r in got)
+    assert cl.router.stats["flush_force"] == 0 and cl.router.depth() == 0
 
 
 @pytest.mark.parametrize("seed", [3, 11])
